@@ -1,0 +1,553 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (``rscm_tpu_torch``) on one GPU.
+
+Usage: ``python3 chip_smoke.py`` on a machine with a CUDA card and ``nvcc``.
+
+Phases, each printed with its elapsed time:
+
+1. device  -- the card's name and power limit (``nvidia-smi``), torch versions;
+2. build   -- both CUDA kernels built from ``rscm_tpu_torch/csrc`` (one ``nvcc``
+              each, run together), with the ``-Xptxas -v`` register/spill report;
+3. kernels -- each kernel against its plain PyTorch version on the card, at
+              B = 100,000 and a ragged B = 99,997, in float64 and float32;
+4. main    -- the port's main path: a 100,000-member, 251-year ClimateUDEB
+              ensemble driven by the 1pctCO2 forcing ramp, built with
+              ``ModelBuilder`` and run by ``EnsembleRunner.run`` in float64;
+              the launch counts of both kernels must be 250; 64 members re-run
+              with the plain engine must agree; one member built as the golden
+              10_full_default regression case must match the Fortran MAGICC7
+              data at that test's tolerance;
+5. timing  -- the main path's wall time and member-years/s, a torch.profiler
+              breakdown of one main-path run, and per kernel its device time per
+              launch (profiler), the time per back-to-back call (CUDA events), the
+              plain version's time and the least time the card could take (bytes
+              over 3.35 TB/s or operations over 34 TFLOP/s FP64 / 67 TFLOP/s FP32,
+              whichever is larger).
+
+Any failed check raises and the script exits non-zero.  The last three lines
+are the per-kernel JSON record, the ``nvidia-smi`` name/power line and
+``{"ok": true, "device": {...}}``.
+"""
+
+import csv
+import json
+import os
+import shutil
+import subprocess
+import sys
+import time
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, HERE)
+
+GOLDEN = os.path.join(HERE, "tests", "regression", "data", "ocean_udeb")
+#: MAGICC default area fractions: NH ocean/land, SH ocean/land
+FOURBOX_WEIGHTS = (0.5 * 0.58, 0.5 * 0.42, 0.5 * 0.79, 0.5 * 0.21)
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"float64": 34e12, "float32": 67e12}  # outside the tensor cores
+N_MEMBERS = 100_000
+RAGGED = 99_997
+DEVICE = "cuda"
+#: kernel vs plain version, |kernel - plain| <= atol + rtol * |plain|.  Both do
+#: the same operations in the same order and the kernels are built with
+#: -fmad=false, so they should agree exactly; the bound allows a few units in
+#: the last place of each dtype.
+KERNEL_TOL = {"float64": (1e-12, 1e-12), "float32": (1e-5, 1e-5)}
+
+_T0 = time.perf_counter()
+
+
+def log(msg):
+    print(f"[{time.perf_counter() - _T0:9.2f} s] {msg}", flush=True)
+
+
+class Phase:
+    def __init__(self, name):
+        self.name = name
+
+    def __enter__(self):
+        self.t = time.perf_counter()
+        log(f"phase {self.name} ...")
+
+    def __exit__(self, exc_type, exc, tb):
+        status = "ok" if exc_type is None else f"FAILED ({exc_type.__name__})"
+        log(f"phase {self.name}: {status} in {time.perf_counter() - self.t:.2f} s")
+        return False
+
+
+def check_close(what, got, want, rtol, atol):
+    """Max abs error of ``got`` against ``want``; raises beyond the tolerance."""
+    import torch
+
+    diff = (got - want).abs()
+    bad = diff > atol + rtol * want.abs()
+    max_abs = float(diff.max())
+    log(f"  {what}: max abs err {max_abs:.3e} (rtol {rtol:g}, atol {atol:g})")
+    if bool(bad.any()) or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{what}: kernel and plain version disagree (max abs err {max_abs:.3e})")
+    return max_abs
+
+
+def count_flops(fn, *args):
+    """Floating-point arithmetic operations ``fn`` performs (elementwise
+    add/sub/mul/div/neg/abs/min/max counted once per output element)."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    arithmetic = {
+        "add", "sub", "mul", "div", "neg", "abs", "maximum", "minimum",
+        "clamp", "reciprocal", "rsub",
+    }
+
+    class Count(TorchDispatchMode):
+        flops = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            name = func.overloadpacket.__name__
+            if name in arithmetic and isinstance(out, torch.Tensor) and out.is_floating_point():
+                Count.flops += out.numel()
+            return out
+
+    with Count():
+        fn(*args)
+    return Count.flops
+
+
+def cuda_ms(fn, reps):
+    """Mean time of ``fn`` over ``reps`` back-to-back calls, by CUDA events:
+    the stream's span, so it includes any gap the host leaves between
+    launches."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def kernel_device_ms(fn, kernel, reps):
+    """Device time per launch of the CUDA kernel whose name contains
+    ``kernel``, over ``reps`` calls of ``fn``, from torch.profiler: the
+    kernel alone, without the host's launch overhead."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.key]
+    # the mean over the launches the profiler recorded (it may miss the
+    # first few while tracing starts)
+    if len(rows) != 1 or not reps // 2 <= rows[0].count <= reps:
+        raise AssertionError(f"profiler found {[(e.key, e.count) for e in rows]} for {kernel}")
+    return rows[0].self_device_time_total / 1e3 / rows[0].count
+
+
+# ---------------------------------------------------------------------------
+# phases
+# ---------------------------------------------------------------------------
+
+
+def phase_device():
+    import torch
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0].strip()
+    log(f"card: {smi} | torch device: {torch.cuda.get_device_name(0)} | "
+        f"devices: {torch.cuda.device_count()} | torch {torch.__version__} "
+        f"cuda {torch.version.cuda} | python {sys.version.split()[0]}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return smi
+
+
+def phase_build():
+    from rscm_tpu_torch.ops import build
+
+    shutil.rmtree(build.BUILD_DIR, ignore_errors=True)  # build from the sources, always
+    t = time.perf_counter()
+    reports = build.build_all(["udeb_year", "lamcalc"])
+    log(f"  built {sorted(reports)} with nvcc {' '.join(build.NVCC_FLAGS)} "
+        f"in {time.perf_counter() - t:.2f} s")
+    for name, report in sorted(reports.items()):
+        for line in build.ptxas_summary(report):
+            log(f"  {name}: {line}")
+    return reports
+
+
+def udeb_inputs(b, dtype, seed):
+    """Kernel inputs as the main path builds them: packed scalar rows from a
+    default ClimateUDEB with swept ECS/kappa, warm ocean columns, the shared
+    initial profile as a broadcast view."""
+    import numpy as np
+    import torch
+
+    from rscm_tpu_torch.magicc import ClimateUDEB
+    from rscm_tpu_torch.ops.udeb_month import static_from_component
+
+    comp = ClimateUDEB()
+    rng = np.random.default_rng(seed)
+    n = comp.n_layers
+
+    def u(lo, hi):
+        return rng.uniform(lo, hi, b)
+
+    rows = [
+        u(0.5, 2.5), u(1.0, 3.0), u(0.4, 1.5), np.full(b, comp.kappa_dkdt),
+        np.full(b, comp.kappa_min_m2_per_yr()), np.full(b, comp.w_initial),
+        np.full(b, comp.w_variable_fraction), np.full(b, comp.k_lo), np.full(b, comp.k_ns),
+        np.full(b, comp.k_lg), np.full(b, comp.amplify_ocean_to_land),
+        np.full(b, comp.polar_sinking_ratio), np.full(b, comp.temp_adjust_alpha),
+        np.full(b, comp.temp_adjust_gamma), np.full(b, comp.max_temperature),
+        np.full(b, comp.ground_heat_capacity()), u(0.0, 8.0), u(0.0, 8.0), np.full(b, 1.0),
+        np.full(b, comp.w_threshold_temp_nh), np.full(b, comp.w_threshold_temp_sh),
+    ]
+    dev = dict(dtype=dtype, device=DEVICE)
+    scal = torch.tensor(np.stack(rows), **dev)
+    ocean = torch.tensor(rng.uniform(0.0, 4.0, (2 * n, b)), **dev)
+    init = torch.tensor(np.asarray(comp.create_initial_state()["initial_ocean_profile"]), **dev)
+    init = init.reshape(2 * n, 1).expand(2 * n, b)
+    vec = torch.tensor(np.concatenate([
+        rng.uniform(0.0, 4.0, (4, b)), rng.uniform(-0.5, 0.5, (2, b)),
+        rng.uniform(1.0, 3.5, (2, b)), rng.uniform(1.0, 1.04, (2, b)),
+    ]), **dev)
+    return static_from_component(comp, 1.0), scal, ocean, init, vec
+
+
+def lamcalc_inputs(b, dtype, seed, fallback_every=64):
+    """(6, B) LAMCALC inputs with the main path's ECS spread; every
+    ``fallback_every``-th member asks for an unreachable land/ocean warming
+    ratio and takes the fallback (none when it is 0)."""
+    import numpy as np
+    import torch
+
+    from rscm_tpu_torch.magicc import ClimateUDEB
+    from rscm_tpu_torch.magicc.climate.lamcalc import LamcalcParams
+    from rscm_tpu_torch.ops.lamcalc_kernel import lam_static
+
+    comp = ClimateUDEB()
+    fgno, fgnl, fgso, fgsl = comp.global_box_fractions()
+    params = LamcalcParams(
+        q_2xco2=comp.rf_2xco2, k_lo=comp.k_lo, k_ns=comp.k_ns, ecs=comp.ecs, rlo=comp.rlo,
+        amplify_ocean_to_land=comp.amplify_ocean_to_land,
+        fgno=fgno, fgnl=fgnl, fgso=fgso, fgsl=fgsl, rf_regions_co2=tuple(comp.rf_regions_co2),
+    )
+    st = lam_static(params, (comp.lambda_ocean, comp.lambda_land, comp.matrix_inverse,
+                             comp.co2_internal_efficacy))
+    rng = np.random.default_rng(seed)
+    rlo = np.full(b, comp.rlo)
+    if fallback_every:
+        rlo[::fallback_every] = 100.0
+    packed = torch.tensor(np.stack([
+        rng.uniform(1.8, 5.5, b), np.full(b, comp.rf_2xco2), np.full(b, comp.k_lo),
+        np.full(b, comp.k_ns), rlo, np.full(b, comp.amplify_ocean_to_land),
+    ]), dtype=dtype, device=DEVICE)
+    return st, packed
+
+
+def phase_kernels():
+    import torch
+
+    from rscm_tpu_torch.ops.lamcalc_kernel import lamcalc, lamcalc_plain_with_iterations
+    from rscm_tpu_torch.ops.udeb_month import udeb_year, udeb_year_plain
+
+    errs = {}
+    for b in (N_MEMBERS, RAGGED):
+        for dtype in (torch.float64, torch.float32):
+            dname = str(dtype).split(".")[-1]
+            rtol, atol = KERNEL_TOL[dname]
+            st, scal, ocean, init, vec = udeb_inputs(b, dtype, seed=b)
+            ko, kv = udeb_year(st, scal, ocean, init, vec)
+            po, pv = udeb_year_plain(st, scal, ocean, init, vec)
+            torch.cuda.synchronize()
+            e = max(check_close(f"udeb_year {dname} B={b} ocean", ko, po, rtol, atol),
+                    check_close(f"udeb_year {dname} B={b} vec", kv, pv, rtol, atol))
+            errs[("udeb_year", b, dname)] = e
+
+            lst, packed = lamcalc_inputs(b, dtype, seed=b)
+            k = lamcalc(lst, packed)
+            p, iters = lamcalc_plain_with_iterations(lst, packed)
+            torch.cuda.synchronize()
+            n_fallback = int((iters == 39).sum())
+            if n_fallback == 0:
+                raise AssertionError("lamcalc check has no fallback members")
+            errs[("lamcalc", b, dname)] = check_close(
+                f"lamcalc {dname} B={b} ({n_fallback} members take the fallback)",
+                k, p, rtol, atol,
+            )
+    return errs
+
+
+def read_golden(name):
+    """Years, global surface temperature and config of a golden case."""
+    with open(os.path.join(GOLDEN, f"{name}_config.json")) as f:
+        config = json.load(f)
+    with open(os.path.join(GOLDEN, f"{name}.csv"), newline="") as f:
+        reader = csv.reader(f)
+        header = next(reader)
+        rows = [r for r in reader]
+    meta = 7
+    years = [float(h[:4]) for h in header[meta:]]
+    col = {c: i for i, c in enumerate(header[:meta])}
+    for r in rows:
+        if r[col["variable"]] == "Surface Temperature" and r[col["region"]] == "World":
+            return years, [float(v) for v in r[meta:]], config
+    raise KeyError(f"{name}: no World Surface Temperature row")
+
+
+def ramp_forcing_1pct(years, rf_2xco2, start_year):
+    import numpy as np
+
+    dt = np.asarray(years) - start_year
+    co2_ratio = np.where(dt > 0, 1.01**dt, 1.0)
+    return rf_2xco2 * np.log(co2_ratio) / np.log(2.0)
+
+
+def build_udeb_model(years, erf, params):
+    """ClimateUDEB driven by an exogenous ERF, as the golden regression
+    test builds it (time axis from bounds, float64 forcing)."""
+    import numpy as np
+
+    from rscm_tpu_torch.core import (
+        GridType, ModelBuilder, TimeAxis, Timeseries, VariableSchema,
+    )
+    from rscm_tpu_torch.core.spatial import ScalarGrid
+    from rscm_tpu_torch.magicc import ClimateUDEB
+
+    years = np.asarray(years, dtype=np.float64)
+    axis = TimeAxis.from_bounds(np.concatenate([years, [years[-1] + 1.0]]))
+    schema = VariableSchema()
+    schema.add_variable("Effective Radiative Forcing", "W/m^2")
+    schema.add_variable("Surface Temperature", "K", GridType.FourBox)
+    schema.add_variable("Heat Uptake", "W/m^2")
+    schema.add_variable("Ocean Heat Content", "J/m^2")
+    schema.add_variable("Sea Surface Temperature", "K")
+    return (
+        ModelBuilder()
+        .with_time_axis(axis)
+        .with_schema(schema)
+        .with_component(ClimateUDEB(**params))
+        .with_exogenous_variable(
+            "Effective Radiative Forcing",
+            Timeseries(np.asarray(erf, dtype=np.float64)[:, None], axis, ScalarGrid(), "W/m^2"),
+        )
+        .with_initial_values({"Surface Temperature": 0.0})
+        .build()
+    )
+
+
+def phase_main():
+    import numpy as np
+    import torch
+
+    from rscm_tpu_torch.ops.lamcalc_kernel import lamcalc
+    from rscm_tpu_torch.ops.udeb_month import udeb_year
+    from rscm_tpu_torch.parallel import EnsembleRunner
+
+    _, _, config = read_golden("10_full_default")
+    base = {"ecs": config["core_climatesensitivity"], "rf_2xco2": config["core_delq2xco2"]}
+    years = np.arange(1850.0, 2101.0)  # 251 years, 250 steps
+    erf = ramp_forcing_1pct(years, base["rf_2xco2"], config["startyear"])
+    rng = np.random.default_rng(3)
+    sweep = {
+        "ClimateUDEB.ecs": rng.uniform(1.8, 5.5, N_MEMBERS),
+        "ClimateUDEB.kappa": rng.uniform(0.4, 1.5, N_MEMBERS),
+    }
+
+    runner = EnsembleRunner(build_udeb_model(years, erf, {**base, "month_engine": "auto"}))
+    params = runner.batched_params(sweep)
+    udeb_year.launches = 0
+    lamcalc.launches = 0
+    out = runner.run(params, out_vars=["Surface Temperature"])
+    torch.cuda.synchronize()
+    launches = {"udeb_year": udeb_year.launches, "lamcalc": lamcalc.launches}
+    temps = out["Surface Temperature"]
+    log(f"  main path: {N_MEMBERS} members x {len(years)} years; launches {launches}")
+    if tuple(temps.shape) != (N_MEMBERS, len(years), 4) or not bool(torch.isfinite(temps).all()):
+        raise AssertionError(f"main path output: shape {tuple(temps.shape)}, or non-finite values")
+    n_steps = len(years) - 1
+    if launches != {"udeb_year": n_steps, "lamcalc": n_steps}:
+        raise AssertionError(f"main path launches {launches}, expected {n_steps} each")
+    w = torch.tensor(FOURBOX_WEIGHTS, dtype=temps.dtype, device=temps.device)
+    final = (temps[:, -1] * w).sum(-1)
+    log(f"  {int(years[-1])} global warming: min {float(final.min()):.3f} K, "
+        f"median {float(final.median()):.3f} K, max {float(final.max()):.3f} K")
+
+    # 64 members again through the plain versions of both kernels.  Same
+    # arithmetic per member; the 4-box sums may be reduced in another order
+    # at another batch size, so allow the last bits to differ over 250 years.
+    n_check = 64
+    plain = EnsembleRunner(build_udeb_model(years, erf, {**base, "month_engine": "torch"}))
+    plain_out = plain.run(
+        plain.batched_params({k: v[:n_check] for k, v in sweep.items()}),
+        out_vars=["Surface Temperature"],
+    )["Surface Temperature"]
+    check_close(f"{n_check} members, month_engine='torch' vs the kernels",
+                temps[:n_check], plain_out, 1e-10, 1e-10)
+
+    # the golden 10_full_default case, built as tests/regression/
+    # test_ocean_udeb.py::test_ocean_10_full_default builds it, on the card
+    g_years, expected, _ = read_golden("10_full_default")
+    golden = build_udeb_model(g_years, ramp_forcing_1pct(g_years, base["rf_2xco2"],
+                                                         config["startyear"]), base)
+    golden.run()
+    actual = np.asarray(golden.collection.get_data("Surface Temperature").values()) @ np.asarray(
+        FOURBOX_WEIGHTS)
+    expected = np.asarray(expected)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        rel = np.where(np.abs(expected) > 1e-6, (actual - expected) / expected, 0.0)
+    ok = np.all(np.abs(actual - expected) <= 1e-6 + 0.1 * np.abs(expected))
+    log(f"  golden 10_full_default: max rel err {np.max(np.abs(rel)):.4f} "
+        f"(rtol 0.1, atol 1e-06): {'pass' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("golden 10_full_default check failed")
+    return runner, params, launches, n_steps
+
+
+def profile_main(runner, params, wall):
+    """Device time of one main-path run by kernel, from torch.profiler, and
+    the device's idle share against the run's wall time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        runner.run(params, out_vars=["Surface Temperature"])
+        torch.cuda.synchronize()
+    # device-side events only (kernels, copies): the CPU-op rows carry the
+    # same device time again under the op's name
+    rows = [
+        (e.self_device_time_total / 1e3, e.count, e.key)
+        for e in prof.key_averages()
+        if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0
+    ]
+    busy_ms = sum(ms for ms, _, _ in rows)
+    if not rows:
+        log("  profile: the profiler recorded no device time (not measured)")
+        return
+    log(f"  profile of one main-path run: device busy {busy_ms:.1f} ms of a {wall * 1e3:.1f} ms "
+        f"unprofiled wall (idle share {1 - busy_ms / (wall * 1e3):.3f}); top device time:")
+    for ms, count, key in sorted(rows, reverse=True)[:10]:
+        log(f"    {ms:9.2f} ms {ms / busy_ms:6.1%} x{count:<6d} {key[:90]}")
+    for kernel in ("udeb_year_kernel", "lamcalc_kernel"):
+        for ms, count, key in rows:
+            if kernel in key:
+                log(f"  profile: {kernel} {ms:.2f} ms over {count} launches "
+                    f"({ms / count:.4f} ms a launch) on the main path")
+
+
+def phase_timing(smi, runner, params, launches, n_steps, errs):
+    import torch
+
+    from rscm_tpu_torch.ops.lamcalc_kernel import (
+        lamcalc, lamcalc_plain, lamcalc_plain_with_iterations,
+    )
+    from rscm_tpu_torch.ops.udeb_month import udeb_year, udeb_year_plain
+
+    # main path: wall (host clock, ends in a synchronize) and device span
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t = time.perf_counter()
+    start.record()
+    runner.run(params, out_vars=["Surface Temperature"])
+    end.record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    span = start.elapsed_time(end) / 1e3
+    log(f"  main path: wall {wall:.3f} s, CUDA-event span {span:.3f} s, "
+        f"{N_MEMBERS * n_steps / wall:.4e} member-years/s on {smi}")
+
+    profile_main(runner, params, wall)
+
+    records = []
+    b, dtype, dname = N_MEMBERS, torch.float64, "float64"
+
+    st, scal, ocean, init, vec = udeb_inputs(b, dtype, seed=1)
+    ms = kernel_device_ms(lambda: udeb_year(st, scal, ocean, init, vec), "udeb_year_kernel", 20)
+    call_ms = cuda_ms(lambda: udeb_year(st, scal, ocean, init, vec), 20)
+    plain_ms = cuda_ms(lambda: udeb_year_plain(st, scal, ocean, init, vec), 2)
+    small = udeb_inputs(256, dtype, seed=1)
+    flops = count_flops(udeb_year_plain, *small) / 256 * b
+    item = scal.element_size()
+    nbytes = item * (scal.numel() + ocean.numel() + 2 * st.n + vec.numel()
+                     + ocean.numel() + 8 * b)
+    records.append(("udeb_year", "rscm_tpu_torch/csrc/udeb_year.cu",
+                    "rscm_tpu/ops/udeb_month.py:400", ms, call_ms, plain_ms, flops, nbytes,
+                    dname))
+
+    # timed on the main path's kind of input: every member converges (the
+    # fallback members of the check above hold whole warps for 39 iterations)
+    lst, packed = lamcalc_inputs(b, dtype, seed=1, fallback_every=0)
+    ms = kernel_device_ms(lambda: lamcalc(lst, packed), "lamcalc_kernel", 20)
+    call_ms = cuda_ms(lambda: lamcalc(lst, packed), 20)
+    plain_ms = cuda_ms(lambda: lamcalc_plain(lst, packed), 2)
+    _, iters = lamcalc_plain_with_iterations(lst, packed)
+    small_st, small_packed = lamcalc_inputs(256, dtype, seed=1, fallback_every=0)
+    per_member_fixed = count_flops(lamcalc_plain, small_st, small_packed) / 256
+    # the kernel stops each member when it converges: count those iterations
+    flops = per_member_fixed * float(iters.double().sum()) / 39.0
+    nbytes = packed.element_size() * (packed.numel() + 3 * b)
+    records.append(("lamcalc", "rscm_tpu_torch/csrc/lamcalc.cu",
+                    "rscm_tpu/ops/lamcalc_kernel.py:252", ms, call_ms, plain_ms, flops, nbytes,
+                    dname))
+
+    kernels = []
+    for name, source, replaces, ms, call_ms, plain_ms, flops, nbytes, dn in records:
+        t_ops = flops / PEAK_FLOPS[dn] * 1e3
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        bound_ms = max(t_ops, t_bytes)
+        bound_by = "operations" if t_ops >= t_bytes else "bytes"
+        log(f"  {name}: {ms:.4f} ms/launch on the device ({call_ms:.4f} ms a call back to "
+            f"back, host launch included), plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms "
+            f"by {bound_by} ({flops:.4e} FLOP, {nbytes:.4e} B) at B={b} {dn} on {smi}")
+        kernels.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": launches[name], "max_abs_err": errs[(name, N_MEMBERS, "float64")],
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None,
+        })
+    return kernels
+
+
+def main():
+    with Phase("device"):
+        smi = phase_device()
+    with Phase("build"):
+        phase_build()
+    with Phase("kernels"):
+        errs = phase_kernels()
+    with Phase("main"):
+        runner, params, launches, n_steps = phase_main()
+    with Phase("timing"):
+        kernels = phase_timing(smi, runner, params, launches, n_steps, errs)
+
+    import torch
+
+    print(json.dumps({"kernels": kernels}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu",
+        "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }}), flush=True)
+
+
+if __name__ == "__main__":
+    try:
+        main()
+    except Exception as exc:  # report and fail: no phase failure ends in exit 0
+        print(f"chip_smoke FAILED: {type(exc).__name__}: {exc}", file=sys.stderr, flush=True)
+        raise

@@ -1,0 +1,25 @@
+"""
+rscm_tpu_torch — the PyTorch/CUDA port of ``rscm_tpu`` for one NVIDIA H100.
+
+The package mirrors ``rscm_tpu``'s module paths so each counterpart is easy
+to find, and keeps its own copies of what it needs: it imports neither JAX
+nor anything of ``rscm_tpu``.  Models are built with the same builder
+(unit, grid and schema checks), run as a Python loop over years on tensors
+with the ensemble member axis written out, and the two Pallas kernels of
+the TPU package are hand-written CUDA kernels here (``csrc/``), each with a
+plain PyTorch version beside it (``ops/``).
+
+Entry points (``Model.run``, ``EnsembleRunner``) run on the CUDA card
+unless the caller passes ``device="cpu"``.
+
+Subpackages
+-----------
+core        Engine: time axis, timeseries, grids, units, components, model
+components  Builder shims for components
+magicc      MAGICC7-derived components (this slice: ClimateUDEB)
+parallel    Batched ensemble runner
+ops         The CUDA kernels' wrappers, plain versions and build
+utils       Linear algebra and the device choice
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,245 @@
+"""
+The model program: the whole run as a loop over years on batched tensors.
+
+Port of ``rscm_tpu/core/model/program.py``.  The TPU package traces the
+builder's static execution plan into one step function and lets
+``lax.scan`` drive it over the time axis, with ``vmap`` adding the member
+axis.  PyTorch runs eagerly, so here the same plan runs as a Python loop
+over years, with the member axis written out:
+
+- every endogenous variable keeps its full ``(n_steps, B, n_regions)``
+  trajectory and each component's outputs are written at index **N+1**
+  (in place), so upstream outputs written earlier in a step are visible to
+  later components' ``at_end`` reads;
+- exogenous data is ``(n_steps, n_regions)``, shared by every member;
+- parameters are a ``{node: {name: value}}`` dict whose values are host
+  floats (shared) or ``(B,)`` tensors (swept per member);
+- component internal states enter and leave in their host layout; the
+  components' ``pack_scan_state`` / ``unpack_scan_state`` hooks convert
+  them at entry and exit, as in the TPU package.
+
+The streaming mode (``run_window_fn``) is not ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+
+from ..component import SolveContext
+from ..state import StateValue, make_window
+from ..timeseries import VariableType
+from .graph import NullComponent
+from .input_state import InputState
+from .runtime import prepare_inputs
+
+__all__ = ["ModelProgram"]
+
+
+class ModelProgram:
+    """The batched year loop of a built model on one device and dtype."""
+
+    def __init__(self, model, dtype=torch.float64, device="cpu"):
+        self.model = model
+        self.dtype = dtype
+        self.device = torch.device(device)
+        self.exec_nodes = [
+            node
+            for node in model.exec_order
+            if not isinstance(model.graph.nodes[node], NullComponent)
+        ]
+        self.n_steps = len(model.time_axis)
+        self.time_values = np.asarray(model.time_axis.values(), dtype=np.float64)
+        self.time_bounds = np.asarray(model.time_axis.bounds(), dtype=np.float64)
+        # static step widths for per-component sub-stepping
+        self.spans = np.diff(self.time_bounds)
+
+        self.endo_names = []
+        self.exo_names = []
+        for item in model.collection:
+            if item.variable_type is VariableType.Endogenous:
+                self.endo_names.append(item.name)
+            else:
+                self.exo_names.append(item.name)
+
+    def _tensor(self, x):
+        if isinstance(x, torch.Tensor):
+            return x.to(dtype=self.dtype, device=self.device)
+        return torch.as_tensor(np.asarray(x), dtype=self.dtype, device=self.device)
+
+    # -- the loop ------------------------------------------------------------
+
+    def _solve_all_nodes(self, endo, exo, internals, ctx, params):
+        """Solve every node for step ``ctx.step_index`` in topological order."""
+        model = self.model
+        plan = model._plan
+        idx = ctx.step_index
+
+        for node in self.exec_nodes:
+            component = model.graph.nodes[node]
+            read_specs, write_specs = plan[node]
+
+            builders = {}
+            for spec in read_specs:
+                item = model.collection.get_item(spec.var_name)
+                values = endo[spec.var_name] if spec.var_name in endo else exo[spec.var_name]
+
+                def make(spec=spec, values=values, item=item):
+                    return make_window(
+                        spec.window_grid,
+                        values,
+                        idx,
+                        ctx.t_current,
+                        factor=spec.factor,
+                        source=spec.source,
+                        strategy=item.data.interpolation_strategy,
+                        time_values=self.time_values,
+                        grid=model._grid_obj(spec.window_grid),
+                        aggregation=spec.aggregation,
+                    )
+
+                builders[spec.var_name] = make
+            input_state = InputState(builders, ctx.t_current)
+
+            node_params = params.get(str(node), {})
+            bound = component.with_params(node_params) if node_params else component
+
+            inputs = prepare_inputs(bound, input_state)
+            outputs, internals[str(node)] = bound.solve_ctx(ctx, inputs, internals.get(str(node)))
+
+            if hasattr(outputs, "to_dict"):
+                outputs = outputs.to_dict()
+            for key, value in outputs.items():
+                if key not in endo:
+                    continue
+                row = self._tensor(StateValue.wrap(value).as_array())
+                spec = write_specs.get(key)
+                if spec is not None and spec.matrix is not None:
+                    row = row @ self._tensor(spec.matrix)
+                endo[key][idx + 1] = row
+
+    def _pack_internals(self, internals, start_idx: int):
+        out = dict(internals)
+        dt = self._uniform_dt()
+        for node in self.exec_nodes:
+            comp, key = self.model.graph.nodes[node], str(node)
+            if out.get(key) is not None and hasattr(comp, "pack_scan_state"):
+                out[key] = comp.pack_scan_state(out[key], start_idx, dt=dt)
+        return out
+
+    def _unpack_internals(self, internals, end_idx: int):
+        out = dict(internals)
+        for node in self.exec_nodes:
+            comp, key = self.model.graph.nodes[node], str(node)
+            if out.get(key) is not None and hasattr(comp, "unpack_scan_state"):
+                out[key] = comp.unpack_scan_state(out[key], end_idx)
+        return out
+
+    def _uniform_dt(self):
+        """The axis step if the time axis is uniform, else None."""
+        dts = np.diff(self.time_values)
+        if dts.size and np.allclose(dts, dts[0], rtol=1e-12, atol=0.0):
+            return float(dts[0])
+        return None
+
+    def run_fn(self, endo, exo, params, internals, start_idx: int = 0):
+        """Run the loop from ``start_idx`` to the end of the axis.
+
+        ``endo`` maps each endogenous name to its ``(n_steps, B, n_regions)``
+        trajectory and is written in place; ``exo`` maps each exogenous name
+        to ``(n_steps, n_regions)``; ``params`` is ``{node: {name: float |
+        (B,) tensor}}``; ``internals`` the host-layout internal states.
+        Returns ``(endo, internals)`` after the final step.
+        """
+        if self.n_steps - 1 - start_idx <= 0:
+            return endo, internals
+        internals = self._pack_internals(internals, start_idx)
+        for idx in range(start_idx, self.n_steps - 1):
+            ctx = SolveContext(
+                float(self.time_bounds[idx]),
+                float(self.time_bounds[idx + 1]),
+                idx,
+                spans=self.spans,
+                scan_mode=True,
+            )
+            self._solve_all_nodes(endo, exo, internals, ctx, params)
+        return endo, self._unpack_internals(internals, self.n_steps - 1)
+
+    # -- host data marshalling ------------------------------------------------
+
+    def gather_endo(self, batch: int) -> Dict[str, torch.Tensor]:
+        """Endogenous trajectories broadcast to ``(n_steps, batch, g)``."""
+        out = {}
+        for name in self.endo_names:
+            values = self._tensor(self.model.collection.get_data(name)._values)
+            out[name] = values[:, None].expand(-1, batch, -1).clone()
+        return out
+
+    def gather_exo(self) -> Dict[str, torch.Tensor]:
+        return {
+            name: self._tensor(self.model.collection.get_data(name)._values)
+            for name in self.exo_names
+        }
+
+    def gather_params(self) -> Dict[str, dict]:
+        """Every node's non-static parameters as host float64 arrays."""
+        params = {}
+        for node in self.exec_nodes:
+            pytree = self.model.graph.nodes[node].param_pytree()
+            if pytree:
+                params[str(node)] = {
+                    k: np.asarray(v, dtype=np.float64) for k, v in pytree.items()
+                }
+        return params
+
+    def gather_internals(self) -> Dict[str, object]:
+        """Internal states in the host layout, float leaves as tensors."""
+
+        def cast(leaf):
+            arr = np.asarray(leaf)
+            if np.issubdtype(arr.dtype, np.floating):
+                return self._tensor(arr)
+            return leaf
+
+        return {
+            str(node): (
+                None
+                if self.model.component_states[node] is None
+                else {k: cast(v) for k, v in self.model.component_states[node].items()}
+            )
+            for node in self.exec_nodes
+        }
+
+    def node_names(self) -> Dict[str, str]:
+        """``{node key: component name}`` of the solved nodes."""
+        return {
+            str(node): getattr(
+                self.model.graph.nodes[node], "component_name",
+                type(self.model.graph.nodes[node]).__name__,
+            )
+            for node in self.exec_nodes
+        }
+
+    # -- execution --------------------------------------------------------------
+
+    def run_into_collection(self, model):
+        """Run one member from the model's current time index and write the
+        trajectories back into its collection."""
+        start_idx = model.time_index
+        params = {
+            nk: {pn: float(v) for pn, v in node.items()}
+            for nk, node in self.gather_params().items()
+        }
+        endo, _ = self.run_fn(
+            self.gather_endo(1), self.gather_exo(), params, self.gather_internals(),
+            start_idx=start_idx,
+        )
+        for name, arr in endo.items():
+            data = model.collection.get_data(name)
+            # only the rows the loop wrote: earlier rows are committed history
+            data._values[start_idx + 1 :, :] = (
+                arr[start_idx + 1 :, 0].to(torch.float64).cpu().numpy()
+            )
+            data._recompute_latest()

@@ -1,0 +1,137 @@
+"""
+Batched ensemble execution of a model program.
+
+Port of ``rscm_tpu/parallel/ensemble.py``.  Typical use::
+
+    runner = EnsembleRunner(model)                       # on the CUDA card
+    params = runner.batched_params({"ClimateUDEB.ecs": ecs})  # (B,) sweep
+    out = runner.run(params, out_vars=["Surface Temperature"])
+
+``params`` follows the program's parameter dict —
+``{node_id: {param_name: value}}`` — where a swept parameter is a ``(B,)``
+array or tensor and every other one a scalar.  Scalars are baked into the
+run as host floats, so only the swept parameters occupy batch-sized device
+memory.  Sharding the batch over several cards and batched exogenous
+scenarios are not ported yet.
+"""
+
+from __future__ import annotations
+
+import warnings
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from rscm_tpu_torch.core.model.program import ModelProgram
+from rscm_tpu_torch.utils.target import resolve_device
+
+__all__ = ["EnsembleRunner"]
+
+
+class EnsembleRunner:
+    """Run a model's program over a batch of members.
+
+    ``device`` defaults to the CUDA card (raising when there is none);
+    ``dtype`` is the working floating-point type of the run.
+    """
+
+    def __init__(self, model, dtype=torch.float64, device=None):
+        self.model = model
+        self.device = resolve_device(device)
+        self.dtype = dtype
+        self.program = ModelProgram(model, dtype=dtype, device=self.device)
+        self._inputs = None
+
+    def base_params(self) -> dict:
+        return self.program.gather_params()
+
+    def batched_params(self, overrides: Dict[str, np.ndarray]) -> dict:
+        """Parameter dict from per-parameter override arrays.
+
+        ``overrides`` maps ``"ComponentName.param"`` to a ``(B,)`` array;
+        those leaves become ``(B,)`` tensors on the runner's device, every
+        other parameter stays a 0-d host array (baked by :meth:`run`).
+        """
+        sizes = {np.shape(v)[0] for v in overrides.values()}
+        if len(sizes) != 1:
+            raise ValueError("batched_params: override arrays must share the batch size")
+        names = self.program.node_names()
+        out = {}
+        matched = set()
+        for node_key, params in self.base_params().items():
+            out[node_key] = {}
+            for pname, value in params.items():
+                key = f"{names[node_key]}.{pname}"
+                if key in overrides:
+                    matched.add(key)
+                    out[node_key][pname] = torch.as_tensor(
+                        np.asarray(overrides[key]), dtype=self.dtype, device=self.device
+                    )
+                else:
+                    out[node_key][pname] = value
+        unknown = set(overrides) - matched
+        if unknown:
+            known = sorted(
+                f"{names[nk]}.{pn}" for nk, params in self.base_params().items() for pn in params
+            )
+            raise KeyError(
+                f"batched_params: unknown parameter(s) {sorted(unknown)}; "
+                f"known parameters: {known}"
+            )
+        return out
+
+    @staticmethod
+    def _split_params(params):
+        """Partition the parameter dict into batched ``(B,)`` leaves and
+        scalars baked as host floats (the TPU package's constant baking,
+        ``ensemble.py:202-229``: unswept parameters are constants of the
+        run, so physics can special-case their values on the host)."""
+        batched: dict = {}
+        baked: dict = {}
+        for nk in sorted(params):
+            for pn in sorted(params[nk]):
+                v = params[nk][pn]
+                if np.ndim(v) >= 1:
+                    batched.setdefault(nk, {})[pn] = v
+                else:
+                    baked.setdefault(nk, {})[pn] = float(v)
+        return batched, baked
+
+    def run(self, params: dict, out_vars: Optional[list] = None, start_idx: int = 0):
+        """Run the ensemble; returns ``{var_name: (B, n_steps, n_regions)}``
+        tensors on the runner's device (``out_vars`` restricts which)."""
+        if start_idx == 0 and self.model.time_index > 0:
+            warnings.warn(
+                "EnsembleRunner.run(start_idx=0) on a model that has been run "
+                f"to index {self.model.time_index}: component internal states "
+                "are snapshotted from the model's CURRENT position. Rebuild the "
+                "model for a from-scratch ensemble.",
+                stacklevel=2,
+            )
+        p = self.program
+        batched, baked = self._split_params(params)
+        if not batched:
+            raise ValueError(
+                "EnsembleRunner.run: nothing is batched — provide (B,) parameters "
+                "(batched_params)"
+            )
+        sizes = {int(np.shape(v)[0]) for node in batched.values() for v in node.values()}
+        if len(sizes) != 1:
+            raise ValueError(f"EnsembleRunner.run: batched parameters disagree on B: {sizes}")
+        (batch,) = sizes
+
+        merged = {nk: dict(node) for nk, node in baked.items()}
+        for nk, node in batched.items():
+            for pn, v in node.items():
+                merged.setdefault(nk, {})[pn] = torch.as_tensor(
+                    v, dtype=self.dtype, device=self.device
+                )
+
+        # shared model inputs, moved to the device once per runner
+        if self._inputs is None:
+            self._inputs = (p.gather_exo(), p.gather_internals())
+        exo, internals = self._inputs
+        endo, _ = p.run_fn(p.gather_endo(batch), exo, merged, internals, start_idx=start_idx)
+        names = p.endo_names if out_vars is None else [n for n in p.endo_names if n in out_vars]
+        return {name: endo[name].transpose(0, 1) for name in names}
