@@ -7,22 +7,37 @@ Phases, each printed with its elapsed time:
 
 1. device  -- the card's name and power limit (``nvidia-smi``), torch versions;
 2. build   -- both CUDA kernels built from ``rscm_tpu_torch/csrc`` (one ``nvcc``
-              each, run together), with the ``-Xptxas -v`` register/spill report;
+              each, run together), with the ``-Xptxas -v`` register/spill report
+              and ``udeb_year``'s launch configuration and occupancy; beside
+              them a probe of one IEEE division per dtype, built with the same
+              flags, whose SASS (``cuobjdump -sass``) gives the instructions a
+              division takes;
 3. kernels -- each kernel against its plain PyTorch version on the card, at
-              B = 100,000 and a ragged B = 99,997, in float64 and float32;
+              B = 100,000 and a ragged B = 99,997, in float64 and float32, and
+              ``udeb_year`` at B = 99,997 at n = 2, 3, 17, 50, 100 and its
+              layer limit, and with a per-member initial profile at n = 3
+              and 50; ``udeb_year`` must equal its plain version bit for bit
+              and raise one layer past its limit;
 4. main    -- the port's main path: a 100,000-member, 251-year ClimateUDEB
               ensemble driven by the 1pctCO2 forcing ramp, built with
               ``ModelBuilder`` and run by ``EnsembleRunner.run`` in float64;
               the launch counts of both kernels must be 250; 64 members re-run
               with the plain engine must agree; one member built as the golden
               10_full_default regression case must match the Fortran MAGICC7
-              data at that test's tolerance;
+              data at that test's tolerance; then a second path, 10,000
+              members with 30 layers through ``month_engine="auto"``, whose
+              ``udeb_year`` count must be 250 and whose first 16 members must
+              agree with the plain engine;
 5. timing  -- the main path's wall time and member-years/s, a torch.profiler
-              breakdown of one main-path run, and per kernel its device time per
-              launch (profiler), the time per back-to-back call (CUDA events), the
-              plain version's time and the least time the card could take (bytes
-              over 3.35 TB/s or operations over 34 TFLOP/s FP64 / 67 TFLOP/s FP32,
-              whichever is larger).
+              breakdown of one main-path run (device busy time, idle share), and
+              per kernel its device time per launch (profiler), the time per
+              back-to-back call (CUDA events), the plain version's time and the
+              least time the card could take: the larger of the bytes over
+              3.35 TB/s and the operations over the issue rate without
+              contraction (17e12 FP64 / 33.5e12 FP32 additions or
+              multiplications a second: the kernels are built with
+              ``-fmad=false``), a division counted at the FMA-pipe
+              instructions it takes.
 
 Any failed check raises and the script exits non-zero.  The last three lines
 are the per-kernel JSON record, the ``nvidia-smi`` name/power line and
@@ -44,15 +59,26 @@ GOLDEN = os.path.join(HERE, "tests", "regression", "data", "ocean_udeb")
 #: MAGICC default area fractions: NH ocean/land, SH ocean/land
 FOURBOX_WEIGHTS = (0.5 * 0.58, 0.5 * 0.42, 0.5 * 0.79, 0.5 * 0.21)
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"float64": 34e12, "float32": 67e12}  # outside the tensor cores
+#: data-sheet peak outside the tensor cores, which counts a fused multiply-add
+#: as two operations (the bound's rule before the kernels' -fmad=false was
+#: accounted for; logged beside the bound for comparison)
+PEAK_FLOPS = {"float64": 34e12, "float32": 67e12}
+#: one addition or multiplication per lane and clock: half the peak, since
+#: -fmad=false keeps every add and multiply its own instruction
+ISSUE_RATE = {"float64": 17e12, "float32": 33.5e12}
 N_MEMBERS = 100_000
 RAGGED = 99_997
+#: layer counts udeb_year is held to its plain version at
+LAYER_CHECKS = (2, 3, 17, 50, 100)
+#: the second main path: a narrower ocean through month_engine="auto"
+SECOND = {"members": 10_000, "n_layers": 30, "checked": 16}
 DEVICE = "cuda"
 #: kernel vs plain version, |kernel - plain| <= atol + rtol * |plain|.  Both do
 #: the same operations in the same order and the kernels are built with
 #: -fmad=false, so they should agree exactly; the bound allows a few units in
-#: the last place of each dtype.
+#: the last place of each dtype.  udeb_year is held to exact equality.
 KERNEL_TOL = {"float64": (1e-12, 1e-12), "float32": (1e-5, 1e-5)}
+EXACT = (0.0, 0.0)
 
 _T0 = time.perf_counter()
 
@@ -89,29 +115,119 @@ def check_close(what, got, want, rtol, atol):
 
 
 def count_flops(fn, *args):
-    """Floating-point arithmetic operations ``fn`` performs (elementwise
-    add/sub/mul/div/neg/abs/min/max counted once per output element)."""
+    """Floating-point arithmetic operations ``fn`` performs, as ``(other,
+    divisions)``: elementwise add/sub/mul/min/max counted once per output
+    element; a division by a tensor (or a reciprocal) counted apart, since
+    the kernel divides there, while a division by a host scalar is a
+    multiplication by its reciprocal in the kernel (and in PyTorch's CUDA
+    division) and counts as other.  Negations and absolute values are not
+    counted: in the kernels' SASS they are operand modifiers of the DADD,
+    DMUL or DSETP that uses them."""
     import torch
     from torch.utils._python_dispatch import TorchDispatchMode
 
     arithmetic = {
-        "add", "sub", "mul", "div", "neg", "abs", "maximum", "minimum",
-        "clamp", "reciprocal", "rsub",
+        "add", "sub", "mul", "div", "maximum", "minimum", "clamp", "reciprocal", "rsub",
     }
 
     class Count(TorchDispatchMode):
-        flops = 0
+        other = 0
+        divisions = 0
 
         def __torch_dispatch__(self, func, types, args=(), kwargs=None):
             out = func(*args, **(kwargs or {}))
             name = func.overloadpacket.__name__
             if name in arithmetic and isinstance(out, torch.Tensor) and out.is_floating_point():
-                Count.flops += out.numel()
+                divides = name == "reciprocal" or (
+                    name == "div" and isinstance(args[1], torch.Tensor))
+                if divides:
+                    Count.divisions += out.numel()
+                else:
+                    Count.other += out.numel()
             return out
 
     with Count():
         fn(*args)
-    return Count.flops
+    return Count.other, Count.divisions
+
+
+#: one IEEE division and one multiplication per dtype, built with the kernels'
+#: flags: the SASS difference is what a division costs in instructions
+DIVISION_PROBE = r"""
+extern "C" __global__ void div_f64(const double* a, const double* b, double* o) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x; o[i] = a[i] / b[i]; }
+extern "C" __global__ void mul_f64(const double* a, const double* b, double* o) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x; o[i] = a[i] * b[i]; }
+extern "C" __global__ void div_f32(const float* a, const float* b, float* o) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x; o[i] = a[i] / b[i]; }
+extern "C" __global__ void mul_f32(const float* a, const float* b, float* o) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x; o[i] = a[i] * b[i]; }
+"""
+
+
+def start_division_probe(build):
+    """Start ``nvcc`` on the division probe; returns ``(process, cubin)``."""
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    src = build.BUILD_DIR / "division_probe.cu"
+    src.write_text(DIVISION_PROBE)
+    cubin = build.BUILD_DIR / "division_probe.cubin"
+    flags = [f for f in build.NVCC_FLAGS if f not in ("-shared", "-Xcompiler", "-fPIC")]
+    cmd = [build._nvcc(), *flags, "-cubin", "-o", str(cubin), str(src)]
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), cubin
+
+
+#: the arithmetic instructions of each dtype's FMA pipe, which the issue
+#: rate counts; a division's other instructions (its reciprocal seed on the
+#: special-function unit, its range checks, its branch) issue to other pipes
+FMA_PIPE = {"float64": ("DADD", "DMUL", "DFMA"), "float32": ("FADD", "FMUL", "FFMA")}
+
+
+def sass_opcodes(sass):
+    """``{function: [opcode, ...]}`` of a ``cuobjdump -sass`` listing, each
+    function's instructions up to its first unpredicated EXIT."""
+    import re
+
+    ops, name, done = {}, None, False
+    for line in sass.splitlines():
+        fn = re.search(r"Function : (\S+)", line)
+        if fn:
+            name, done = fn.group(1), False
+            ops[name] = []
+            continue
+        ins = re.search(r"/\*[0-9a-f]{4,}\*/\s+(.*?)\s*;", line)
+        if name is None or done or not ins:
+            continue
+        words = ins.group(1).split()
+        opcode = words[1] if words[0].startswith("@") else words[0]
+        ops[name].append(opcode)
+        if words[0] == "EXIT":
+            done = True
+    return ops
+
+
+def division_instructions(probe):
+    """What an IEEE division takes per dtype, from the probe's SASS:
+    ``{dtype: (instructions, FMA-pipe instructions)}``, each the division
+    kernel's count up to its exit less the multiplication kernel's, plus
+    the one multiplication."""
+    proc, cubin = probe
+    out, _ = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on the division probe:\n{out}")
+    cuobjdump = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(cubin)], capture_output=True, text=True,
+                          timeout=120, check=True).stdout
+    ops = sass_opcodes(sass)
+    out = {}
+    for dn, sfx in (("float64", "f64"), ("float32", "f32")):
+        div, mul = ops[f"div_{sfx}"], ops[f"mul_{sfx}"]
+
+        def fma_pipe(listing):
+            return sum(op.split(".")[0] in FMA_PIPE[dn] for op in listing)
+
+        out[dn] = (len(div) - len(mul) + 1, fma_pipe(div) - fma_pipe(mul) + 1)
+    return out
 
 
 def cuda_ms(fn, reps):
@@ -175,31 +291,47 @@ def phase_device():
     return smi
 
 
-def phase_build():
+def phase_build(smi):
+    import torch
+
     from rscm_tpu_torch.ops import build
+    from rscm_tpu_torch.ops.udeb_month import kernel_config
 
     shutil.rmtree(build.BUILD_DIR, ignore_errors=True)  # build from the sources, always
     t = time.perf_counter()
+    probe = start_division_probe(build)
     reports = build.build_all(["udeb_year", "lamcalc"])
+    div_instr = division_instructions(probe)
     log(f"  built {sorted(reports)} with nvcc {' '.join(build.NVCC_FLAGS)} "
         f"in {time.perf_counter() - t:.2f} s")
     for name, report in sorted(reports.items()):
         for line in build.ptxas_summary(report):
-            log(f"  {name}: {line}")
-    return reports
+            log(f"  {name}: {line} [{smi}]")
+    for dn, (total, pipe) in div_instr.items():
+        log(f"  an IEEE division in {dn} takes {total} instructions, {pipe} of them on the "
+            f"{dn[5:]}-bit FMA pipe (SASS of the division probe)")
+    for dtype in (torch.float64, torch.float32):
+        for n in (50, SECOND["n_layers"]):
+            c = kernel_config(n, dtype)
+            warps = c["threads"] * c["blocks_per_sm"] // 32
+            log(f"  udeb_year occupancy, {str(dtype)[6:]}, n={n}: {c['threads']} threads a "
+                f"block, {c['shared_bytes']} shared bytes a block, {c['blocks_per_sm']} blocks "
+                f"({warps} warps) resident per SM [{smi}]")
+    return div_instr
 
 
-def udeb_inputs(b, dtype, seed):
+def udeb_inputs(b, dtype, seed, n_layers=50, per_member_profile=False):
     """Kernel inputs as the main path builds them: packed scalar rows from a
     default ClimateUDEB with swept ECS/kappa, warm ocean columns, the shared
-    initial profile as a broadcast view."""
+    initial profile as a broadcast view (or, with ``per_member_profile``, a
+    contiguous profile perturbed per member)."""
     import numpy as np
     import torch
 
     from rscm_tpu_torch.magicc import ClimateUDEB
     from rscm_tpu_torch.ops.udeb_month import static_from_component
 
-    comp = ClimateUDEB()
+    comp = ClimateUDEB(n_layers=n_layers)
     rng = np.random.default_rng(seed)
     n = comp.n_layers
 
@@ -221,6 +353,8 @@ def udeb_inputs(b, dtype, seed):
     ocean = torch.tensor(rng.uniform(0.0, 4.0, (2 * n, b)), **dev)
     init = torch.tensor(np.asarray(comp.create_initial_state()["initial_ocean_profile"]), **dev)
     init = init.reshape(2 * n, 1).expand(2 * n, b)
+    if per_member_profile:
+        init = init + torch.tensor(rng.uniform(-0.2, 0.2, (2 * n, b)), **dev)
     vec = torch.tensor(np.concatenate([
         rng.uniform(0.0, 4.0, (4, b)), rng.uniform(-0.5, 0.5, (2, b)),
         rng.uniform(1.0, 3.5, (2, b)), rng.uniform(1.0, 1.04, (2, b)),
@@ -263,20 +397,28 @@ def phase_kernels():
     import torch
 
     from rscm_tpu_torch.ops.lamcalc_kernel import lamcalc, lamcalc_plain_with_iterations
-    from rscm_tpu_torch.ops.udeb_month import udeb_year, udeb_year_plain
+    from rscm_tpu_torch.ops.udeb_month import max_kernel_layers, udeb_year, udeb_year_plain
+
+    def check_udeb(b, dtype, dname, n_layers, per_member_profile=False):
+        st, scal, ocean, init, vec = udeb_inputs(b, dtype, seed=b + n_layers, n_layers=n_layers,
+                                                 per_member_profile=per_member_profile)
+        if per_member_profile != (init.stride(1) != 0):
+            raise AssertionError(f"initial profile strides {init.stride()}")
+        ko, kv = udeb_year(st, scal, ocean, init, vec)
+        po, pv = udeb_year_plain(st, scal, ocean, init, vec)
+        torch.cuda.synchronize()
+        what = f"udeb_year {dname} B={b} n={n_layers}"
+        if per_member_profile:
+            what += " per-member profile"
+        return max(check_close(f"{what} ocean", ko, po, *EXACT),
+                   check_close(f"{what} vec", kv, pv, *EXACT))
 
     errs = {}
     for b in (N_MEMBERS, RAGGED):
         for dtype in (torch.float64, torch.float32):
             dname = str(dtype).split(".")[-1]
             rtol, atol = KERNEL_TOL[dname]
-            st, scal, ocean, init, vec = udeb_inputs(b, dtype, seed=b)
-            ko, kv = udeb_year(st, scal, ocean, init, vec)
-            po, pv = udeb_year_plain(st, scal, ocean, init, vec)
-            torch.cuda.synchronize()
-            e = max(check_close(f"udeb_year {dname} B={b} ocean", ko, po, rtol, atol),
-                    check_close(f"udeb_year {dname} B={b} vec", kv, pv, rtol, atol))
-            errs[("udeb_year", b, dname)] = e
+            errs[("udeb_year", b, dname)] = check_udeb(b, dtype, dname, 50)
 
             lst, packed = lamcalc_inputs(b, dtype, seed=b)
             k = lamcalc(lst, packed)
@@ -289,6 +431,20 @@ def phase_kernels():
                 f"lamcalc {dname} B={b} ({n_fallback} members take the fallback)",
                 k, p, rtol, atol,
             )
+    for dtype in (torch.float64, torch.float32):
+        dname = str(dtype).split(".")[-1]
+        limit = max_kernel_layers(dtype)
+        log(f"  udeb_year takes at most {limit} layers in {dname} (the kernel's library)")
+        for n_layers in (*LAYER_CHECKS, limit):
+            check_udeb(RAGGED, dtype, dname, n_layers)
+        for n_layers in (3, 50):
+            check_udeb(RAGGED, dtype, dname, n_layers, per_member_profile=True)
+        try:
+            check_udeb(RAGGED, dtype, dname, limit + 1)
+        except ValueError as exc:
+            log(f"  n={limit + 1} in {dname} raises: {exc}")
+        else:
+            raise AssertionError(f"udeb_year took {limit + 1} layers in {dname}")
     return errs
 
 
@@ -418,7 +574,50 @@ def phase_main():
     return runner, params, launches, n_steps
 
 
-def profile_main(runner, params, wall):
+def phase_second_path():
+    """A narrower ocean (SECOND["n_layers"] layers) through month_engine="auto":
+    the kernel takes the model's own layer count."""
+    import numpy as np
+    import torch
+
+    from rscm_tpu_torch.ops.lamcalc_kernel import lamcalc
+    from rscm_tpu_torch.ops.udeb_month import udeb_year
+    from rscm_tpu_torch.parallel import EnsembleRunner
+
+    _, _, config = read_golden("10_full_default")
+    base = {"ecs": config["core_climatesensitivity"], "rf_2xco2": config["core_delq2xco2"],
+            "n_layers": SECOND["n_layers"]}
+    years = np.arange(1850.0, 2101.0)
+    erf = ramp_forcing_1pct(years, base["rf_2xco2"], config["startyear"])
+    rng = np.random.default_rng(4)
+    b = SECOND["members"]
+    sweep = {"ClimateUDEB.ecs": rng.uniform(1.8, 5.5, b),
+             "ClimateUDEB.kappa": rng.uniform(0.4, 1.5, b)}
+    runner = EnsembleRunner(build_udeb_model(years, erf, {**base, "month_engine": "auto"}))
+    params = runner.batched_params(sweep)
+    udeb_year.launches = 0
+    lamcalc.launches = 0
+    temps = runner.run(params, out_vars=["Surface Temperature"])["Surface Temperature"]
+    torch.cuda.synchronize()
+    launches = {"udeb_year": udeb_year.launches, "lamcalc": lamcalc.launches}
+    n_steps = len(years) - 1
+    log(f"  second path: {b} members x {len(years)} years, {SECOND['n_layers']} layers, "
+        f"month_engine='auto'; launches {launches}")
+    if tuple(temps.shape) != (b, len(years), 4) or not bool(torch.isfinite(temps).all()):
+        raise AssertionError(f"second path output: shape {tuple(temps.shape)}, or non-finite values")
+    if launches != {"udeb_year": n_steps, "lamcalc": n_steps}:
+        raise AssertionError(f"second path launches {launches}, expected {n_steps} each")
+    k = SECOND["checked"]
+    plain = EnsembleRunner(build_udeb_model(years, erf, {**base, "month_engine": "torch"}))
+    plain_out = plain.run(
+        plain.batched_params({name: v[:k] for name, v in sweep.items()}),
+        out_vars=["Surface Temperature"],
+    )["Surface Temperature"]
+    check_close(f"second path: {k} members, month_engine='torch' vs the kernels",
+                temps[:k], plain_out, 1e-10, 1e-10)
+
+
+def profile_main(runner, params, wall, smi):
     """Device time of one main-path run by kernel, from torch.profiler, and
     the device's idle share against the run's wall time."""
     import torch
@@ -439,7 +638,8 @@ def profile_main(runner, params, wall):
         log("  profile: the profiler recorded no device time (not measured)")
         return
     log(f"  profile of one main-path run: device busy {busy_ms:.1f} ms of a {wall * 1e3:.1f} ms "
-        f"unprofiled wall (idle share {1 - busy_ms / (wall * 1e3):.3f}); top device time:")
+        f"unprofiled wall (idle share {1 - busy_ms / (wall * 1e3):.3f}) on {smi}; "
+        f"top device time:")
     for ms, count, key in sorted(rows, reverse=True)[:10]:
         log(f"    {ms:9.2f} ms {ms / busy_ms:6.1%} x{count:<6d} {key[:90]}")
     for kernel in ("udeb_year_kernel", "lamcalc_kernel"):
@@ -449,7 +649,7 @@ def profile_main(runner, params, wall):
                     f"({ms / count:.4f} ms a launch) on the main path")
 
 
-def phase_timing(smi, runner, params, launches, n_steps, errs):
+def phase_timing(smi, runner, params, launches, n_steps, errs, div_instr):
     import torch
 
     from rscm_tpu_torch.ops.lamcalc_kernel import (
@@ -470,7 +670,7 @@ def phase_timing(smi, runner, params, launches, n_steps, errs):
     log(f"  main path: wall {wall:.3f} s, CUDA-event span {span:.3f} s, "
         f"{N_MEMBERS * n_steps / wall:.4e} member-years/s on {smi}")
 
-    profile_main(runner, params, wall)
+    profile_main(runner, params, wall, smi)
 
     records = []
     b, dtype, dname = N_MEMBERS, torch.float64, "float64"
@@ -480,7 +680,7 @@ def phase_timing(smi, runner, params, launches, n_steps, errs):
     call_ms = cuda_ms(lambda: udeb_year(st, scal, ocean, init, vec), 20)
     plain_ms = cuda_ms(lambda: udeb_year_plain(st, scal, ocean, init, vec), 2)
     small = udeb_inputs(256, dtype, seed=1)
-    flops = count_flops(udeb_year_plain, *small) / 256 * b
+    flops = tuple(c / 256 * b for c in count_flops(udeb_year_plain, *small))
     item = scal.element_size()
     nbytes = item * (scal.numel() + ocean.numel() + 2 * st.n + vec.numel()
                      + ocean.numel() + 8 * b)
@@ -496,23 +696,37 @@ def phase_timing(smi, runner, params, launches, n_steps, errs):
     plain_ms = cuda_ms(lambda: lamcalc_plain(lst, packed), 2)
     _, iters = lamcalc_plain_with_iterations(lst, packed)
     small_st, small_packed = lamcalc_inputs(256, dtype, seed=1, fallback_every=0)
-    per_member_fixed = count_flops(lamcalc_plain, small_st, small_packed) / 256
+    per_member_fixed = [c / 256 for c in count_flops(lamcalc_plain, small_st, small_packed)]
     # the kernel stops each member when it converges: count those iterations
-    flops = per_member_fixed * float(iters.double().sum()) / 39.0
+    flops = tuple(c * float(iters.double().sum()) / 39.0 for c in per_member_fixed)
     nbytes = packed.element_size() * (packed.numel() + 3 * b)
     records.append(("lamcalc", "rscm_tpu_torch/csrc/lamcalc.cu",
                     "rscm_tpu/ops/lamcalc_kernel.py:252", ms, call_ms, plain_ms, flops, nbytes,
                     dname))
 
+    # udeb_year in float32 at the same shape, for the record
+    st32, scal32, ocean32, init32, vec32 = udeb_inputs(b, torch.float32, seed=1)
+    ms32 = kernel_device_ms(lambda: udeb_year(st32, scal32, ocean32, init32, vec32),
+                            "udeb_year_kernel", 20)
+    log(f"  udeb_year float32: {ms32:.4f} ms/launch on the device at B={b}, n=50 on {smi}")
+
     kernels = []
-    for name, source, replaces, ms, call_ms, plain_ms, flops, nbytes, dn in records:
-        t_ops = flops / PEAK_FLOPS[dn] * 1e3
+    for name, source, replaces, ms, call_ms, plain_ms, (other, divs), nbytes, dn in records:
+        div_total, div_pipe = div_instr[dn]
+        ops = other + divs * div_pipe
+        t_ops = ops / ISSUE_RATE[dn] * 1e3
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         bound_ms = max(t_ops, t_bytes)
         bound_by = "operations" if t_ops >= t_bytes else "bytes"
+        earlier = max((other + divs) / PEAK_FLOPS[dn] * 1e3, t_bytes)
         log(f"  {name}: {ms:.4f} ms/launch on the device ({call_ms:.4f} ms a call back to "
             f"back, host launch included), plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms "
-            f"by {bound_by} ({flops:.4e} FLOP, {nbytes:.4e} B) at B={b} {dn} on {smi}")
+            f"by {bound_by} ({other:.4e} add/mul-class operations + {divs:.4e} divisions x "
+            f"{div_pipe} FMA-pipe instructions, {nbytes:.4e} B; the kernel at "
+            f"{bound_ms / ms:.1%} of its bound; {earlier:.4f} ms by the earlier rule, every "
+            f"operation one at {PEAK_FLOPS[dn]:.3g}/s; "
+            f"{(other + divs * div_total) / ISSUE_RATE[dn] * 1e3:.4f} ms with every "
+            f"instruction of a division at the issue rate) at B={b} {dn} on {smi}")
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches[name], "max_abs_err": errs[(name, N_MEMBERS, "float64")],
@@ -526,13 +740,15 @@ def main():
     with Phase("device"):
         smi = phase_device()
     with Phase("build"):
-        phase_build()
+        div_instr = phase_build(smi)
     with Phase("kernels"):
         errs = phase_kernels()
     with Phase("main"):
         runner, params, launches, n_steps = phase_main()
+    with Phase("second"):
+        phase_second_path()
     with Phase("timing"):
-        kernels = phase_timing(smi, runner, params, launches, n_steps, errs)
+        kernels = phase_timing(smi, runner, params, launches, n_steps, errs, div_instr)
 
     import torch
 

@@ -232,7 +232,7 @@ class ModelProgram:
             nk: {pn: float(v) for pn, v in node.items()}
             for nk, node in self.gather_params().items()
         }
-        endo, _ = self.run_fn(
+        endo, internals = self.run_fn(
             self.gather_endo(1), self.gather_exo(), params, self.gather_internals(),
             start_idx=start_idx,
         )
@@ -243,3 +243,20 @@ class ModelProgram:
                 arr[start_idx + 1 :, 0].to(torch.float64).cpu().numpy()
             )
             data._recompute_latest()
+        for node in self.exec_nodes:
+            new_state = internals.get(str(node))
+            if new_state is not None:
+                old_state = model.component_states[node]
+                model.component_states[node] = {
+                    k: _host_leaf(v, old_state.get(k)) for k, v in new_state.items()
+                }
+
+
+def _host_leaf(leaf, like):
+    """A final internal-state leaf as a host numpy array, without the
+    member axis of the single-member run where the host leaf ``like`` has
+    none."""
+    arr = leaf.detach().cpu().numpy() if isinstance(leaf, torch.Tensor) else np.asarray(leaf)
+    if like is not None and arr.shape == (1,) + np.shape(like):
+        arr = arr[0]
+    return arr

@@ -531,9 +531,10 @@ class ClimateUDEB(Component):
 
         # circular ring: one slot a year (in place once batched); the
         # running boxcar sum retires the entry aging out of the window,
-        # read from the PRE-update ring, Kahan-compensated
+        # read from the PRE-update ring (a copy: when the window spans the
+        # whole ring it is the slot written next), Kahan-compensated
         new_entry = global_temp * dt_year
-        retiring = th_values[..., (idx - n_eff) % capacity] if n_eff > 0 else None
+        retiring = th_values[..., (idx - n_eff) % capacity].clone() if n_eff > 0 else None
         if th_values.dim() == 1:
             th_values = th_values.expand(b, capacity).clone()
         th_values[:, idx % capacity] = new_entry

@@ -122,10 +122,12 @@ def lamcalc_plain_with_iterations(st: LamStatic, packed):
             )
 
         others = [tuple(k for k in range(4) if k != i) for i in range(4)]
-        cof = [
-            [(-1.0) ** (i + j) * det3(others[i], others[j]) for j in range(4)]
-            for i in range(4)
-        ]
+
+        def cofactor(i, j):
+            d = det3(others[i], others[j])
+            return d if (i + j) % 2 == 0 else -d
+
+        cof = [[cofactor(i, j) for j in range(4)] for i in range(4)]
         det = sum(m[0][j] * cof[0][j] for j in range(4))
         inv_det = 1.0 / det
         return [q * sum((cof[j][i] * inv_det) * v[j] for j in range(4)) for i in range(4)]

@@ -23,22 +23,28 @@ Layout is member-minor, as the Pallas caller builds it: every input is
 Outputs are ``ocean`` ``(2 n, B)`` and ``vec`` ``(8, B)`` (the first eight
 rows of the input ``vec``, updated).
 
-**The CUDA kernel** (``csrc/udeb_year.cu``): one thread per member, so
-neighbouring threads read neighbouring addresses of every row; the ragged
-tail is masked.  The layer count n = 50 is a template parameter and the
-static geometry (area factors, layer spacing, box fractions, the constants
-the plain version folds on the host) is one struct passed by value.
+**The CUDA kernel** (``csrc/udeb_year.cu``): two threads per member, one
+for each hemisphere's column, so neighbouring threads read neighbouring
+addresses of every row; the ragged tail is masked.  The layer count n is a
+run-time argument.  Each thread keeps its column and its Thomas
+coefficients in shared memory, laid out ``[layer][thread]``; the per-layer
+geometry (:func:`_geom`, a device buffer cached per configuration) and a
+broadcast initial profile are staged into shared memory once per block;
+the leading constants are passed by value.  A block of one warp must fit
+the 227 KB a block may use, which bounds n (:func:`max_kernel_layers`
+asks the kernel's library: 409 layers in float64, 818 in float32); the
+wrapper raises above it.
 
-*What bounds it on an H100:* arithmetic.  A member-year is ~12 x 2 x 50
-rows of ~40 floating-point operations (~46k FLOP) against ~1.9 kB of
-inputs and outputs in float64, i.e. ~24 FLOP/byte, above the card's FP64
-ridge (34 TFLOP/s / 3.35 TB/s = 10 FLOP/byte).  *What the design does
-about it:* nothing yet beyond keeping all intermediates in the thread (the
-Pallas kernel's reason to exist was the HBM round trips of the XLA month
-scan; here no intermediate touches device memory).  Two 50-layer columns
-plus the Thomas scratch exceed the 255 registers a thread may hold in
-float64, so the compiler spills to local memory; moving the columns into
-shared memory is the follow-up.
+*What bounds it on an H100:* operations.  A member-year is 2 columns x 12
+months x n layers of a serial Thomas step, each ~40 additions and
+multiplications and 2 IEEE divisions, against ~(4n + 40) values in and
+out.  *What the design does about it:* every intermediate stays on the SM
+(registers and shared memory, no local memory), and the two hemispheres
+run on two threads, which doubles the independent chains in flight; the
+pair swaps its air and land temperatures with a warp shuffle for the
+step that couples them.  The forward sweep forms the next row's
+coefficients before the current row's divisions, so that they fill the
+divisions' latency.
 
 **The plain version** (:func:`udeb_year_plain`): the same operations in
 the same order on ``(2, n, B)`` tensors — the twin of the JAX package's
@@ -52,6 +58,8 @@ same with reciprocals precomputed in the working dtype (:func:`_geom`).
 from __future__ import annotations
 
 import ctypes
+import functools
+from collections import OrderedDict
 from dataclasses import dataclass
 
 import numpy as np
@@ -63,6 +71,8 @@ __all__ = [
     "UdebStatic",
     "SCALAR_ROWS",
     "static_from_component",
+    "max_kernel_layers",
+    "kernel_config",
 ]
 
 #: packed per-member scalar rows, in order
@@ -74,8 +84,13 @@ SCALAR_ROWS = (
 )
 S = len(SCALAR_ROWS)
 
-#: layer count the CUDA kernel is instantiated for
-KERNEL_LAYERS = 50
+@functools.lru_cache(maxsize=None)
+def max_kernel_layers(dtype) -> int:
+    """The most layers the CUDA kernel takes in ``dtype``, as the kernel's
+    library states it (``csrc/udeb_year.cu``, ``max_layers``): a block of one
+    warp must fit the shared memory a block may use.  Builds the kernel on
+    first use."""
+    return int(_lib_fn(f"udeb_year_max_layers_{_SUFFIX[dtype]}", [])())
 
 
 @dataclass(frozen=True)
@@ -323,8 +338,10 @@ _GEOM_SCALARS = (
 )
 
 
-def _geom(st: UdebStatic, np_dtype) -> np.ndarray:
-    """The kernel's geometry struct as one flat array of the working dtype.
+def _geom(st: UdebStatic, np_dtype):
+    """The kernel's geometry in the working dtype: the leading constants
+    (passed by value) and the per-layer rows ``af_top``, ``af_bot``,
+    ``af_diff``, ``one_minus_rel``, ``inv_dz_dzup`` (one device buffer).
 
     Each constant is what the plain version's PyTorch op uses on the card:
     a host float rounded to the dtype, a reciprocal taken in the dtype
@@ -365,15 +382,34 @@ def _geom(st: UdebStatic, np_dtype) -> np.ndarray:
         "inv_fgno": one / t(fgno) if fgno > 1e-15 else t(0.0),
         "inv_fgso": one / t(fgso) if fgso > 1e-15 else t(0.0),
     }
-    parts = [
-        np.asarray([vals[k] for k in _GEOM_SCALARS], dtype=np_dtype),
+    consts = np.asarray([vals[k] for k in _GEOM_SCALARS], dtype=np_dtype)
+    layers = np.concatenate([
         np.asarray(st.af_top, dtype=np_dtype),
         np.asarray(st.af_bot, dtype=np_dtype),
         np.asarray(st.af_diff, dtype=np_dtype),
         np.asarray([1.0 - r for r in st.relative_depth], dtype=np_dtype),
         np.asarray(st.inv_dz_dzup, dtype=np_dtype),
-    ]
-    return np.ascontiguousarray(np.concatenate(parts))
+    ])
+    return consts, layers
+
+
+#: ``(static, dtype, device) -> (constants, per-layer device buffer)``, most
+#: recently used last: built once per configuration, so that a year's launch
+#: adds no host-to-device copy; the oldest is dropped beyond _GEOM_CACHE_SIZE
+_GEOM_CACHE = OrderedDict()
+_GEOM_CACHE_SIZE = 16
+
+
+def _kernel_geom(st: UdebStatic, dtype, device):
+    key = (st, dtype, device)
+    hit = _GEOM_CACHE.pop(key, None)
+    if hit is None:
+        consts, layers = _geom(st, np.dtype(np.float32 if dtype == torch.float32 else np.float64))
+        hit = (consts, torch.tensor(layers, dtype=dtype, device=device))
+        while len(_GEOM_CACHE) >= _GEOM_CACHE_SIZE:
+            _GEOM_CACHE.popitem(last=False)
+    _GEOM_CACHE[key] = hit
+    return hit
 
 
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
@@ -394,11 +430,48 @@ def _check(st: UdebStatic, scal, ocean, init_prof, vec):
             raise ValueError(f"udeb_year: {name} must have {rows} rows, got {x.shape[0]}")
 
 
+def _check_layers(n: int, dtype):
+    limit = max_kernel_layers(dtype)
+    if n > limit:
+        raise ValueError(
+            f"udeb_year: the CUDA kernel takes at most {limit} layers in {dtype}, not {n}: "
+            f"a block of one warp keeps {n} layers per thread in shared memory, more than "
+            f"a block may use"
+        )
+
+
+def _lib_fn(name: str, argtypes):
+    from . import build
+
+    fn = getattr(build.load("udeb_year"), name)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def kernel_config(n: int, dtype, device=None) -> dict:
+    """The CUDA kernel's launch configuration at ``n`` layers on the current
+    (or given) card: threads per block, resident blocks per SM (from
+    ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``) and shared bytes per
+    block.  Raises above :func:`max_kernel_layers`."""
+    _check_layers(n, dtype)
+    p = ctypes.POINTER
+    fn = _lib_fn(f"udeb_year_config_{_SUFFIX[dtype]}",
+                 [ctypes.c_int, p(ctypes.c_int), p(ctypes.c_int), p(ctypes.c_longlong)])
+    threads, blocks, smem = ctypes.c_int(), ctypes.c_int(), ctypes.c_longlong()
+    with torch.cuda.device(device if device is not None else torch.cuda.current_device()):
+        err = fn(n, ctypes.byref(threads), ctypes.byref(blocks), ctypes.byref(smem))
+    if err != 0:
+        raise RuntimeError(f"udeb_year: no launch configuration at {n} layers (CUDA error {err})")
+    return {"threads": threads.value, "blocks_per_sm": blocks.value, "shared_bytes": smem.value}
+
+
 def udeb_year(st: UdebStatic, scal, ocean, init_prof, vec):
     """One year of monthly sub-steps for every member.
 
-    CPU tensors take :func:`udeb_year_plain`.  CUDA tensors launch the
-    kernel (built on first use); anything the kernel cannot take raises.
+    CPU tensors take :func:`udeb_year_plain`, at any layer count.  CUDA
+    tensors launch the kernel (built on first use) at any layer count up
+    to :func:`max_kernel_layers`; anything the kernel cannot take raises.
     """
     _check(st, scal, ocean, init_prof, vec)
     if ocean.device.type == "cpu":
@@ -409,29 +482,24 @@ def udeb_year(st: UdebStatic, scal, ocean, init_prof, vec):
         raise RuntimeError("udeb_year: the CUDA kernel has no backward; inputs must not require grad")
     if ocean.dtype not in _SUFFIX:
         raise TypeError(f"udeb_year: the kernel takes float32 or float64, not {ocean.dtype}")
-    if st.n != KERNEL_LAYERS:
-        raise ValueError(f"udeb_year: the kernel is built for {KERNEL_LAYERS} layers, not {st.n}")
+    _check_layers(st.n, ocean.dtype)
     for name, x in (("scal", scal), ("ocean", ocean), ("vec", vec)):
         if not x.is_contiguous():
             raise ValueError(f"udeb_year: {name} must be contiguous")
 
-    from . import build
-
     b = ocean.shape[-1]
-    suffix = _SUFFIX[ocean.dtype]
-    fn = getattr(build.load("udeb_year"), f"udeb_year_{suffix}")
     p = ctypes.c_void_p
-    fn.argtypes = [p, ctypes.c_int, ctypes.c_int, ctypes.c_int, p, p, p,
-                   ctypes.c_longlong, ctypes.c_longlong, p, p, p, ctypes.c_longlong, p]
-    fn.restype = ctypes.c_int
-    geom = _geom(st, np.dtype(np.float32 if suffix == "f32" else np.float64))
+    fn = _lib_fn(f"udeb_year_{_SUFFIX[ocean.dtype]}",
+                 [p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, p, p, p, p,
+                  ctypes.c_longlong, ctypes.c_longlong, p, p, p, ctypes.c_longlong, p])
+    consts, layers = _kernel_geom(st, ocean.dtype, ocean.device)
     ocean_out = torch.empty_like(ocean)
     vec_out = torch.empty((8, b), dtype=ocean.dtype, device=ocean.device)
     with torch.cuda.device(ocean.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(
-            geom.ctypes.data, geom.size, st.steps, int(st.land_heat_enabled),
-            scal.data_ptr(), ocean.data_ptr(), init_prof.data_ptr(),
+            consts.ctypes.data, consts.size, st.n, st.steps, int(st.land_heat_enabled),
+            layers.data_ptr(), scal.data_ptr(), ocean.data_ptr(), init_prof.data_ptr(),
             init_prof.stride(0), init_prof.stride(1),
             vec.data_ptr(), ocean_out.data_ptr(), vec_out.data_ptr(), b, stream,
         )

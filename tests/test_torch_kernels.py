@@ -59,7 +59,11 @@ def udeb_inputs(comp, seed, b=B):
 
 
 @pytest.mark.parametrize("seed", [0, 1])
-@pytest.mark.parametrize("params", [{}, {"land_heat_capacity_enabled": False}])
+@pytest.mark.parametrize("params", [
+    {}, {"land_heat_capacity_enabled": False},
+    # no interior layer, one interior layer, an odd count
+    {"n_layers": 2}, {"n_layers": 3}, {"n_layers": 17},
+])
 def test_udeb_year_plain_matches_months_jnp(params, seed):
     jax_comp, comp = JaxUDEB(**params), ClimateUDEB(**params)
     arrays = udeb_inputs(comp, seed)
@@ -87,6 +91,53 @@ def test_udeb_wrapper_takes_the_plain_version_on_cpu():
         assert torch.equal(g, w)
     with pytest.raises(ValueError, match="rows"):
         udeb_month.udeb_year(st, scal[:-1], ocean, init, vec)
+
+
+# 410 is past the kernel's float64 limit: the plain version has none
+@pytest.mark.parametrize("n_layers", [2, 17, 410])
+def test_udeb_wrapper_takes_the_plain_version_on_cpu_at_any_layer_count(n_layers):
+    comp = ClimateUDEB(n_layers=n_layers)
+    st = udeb_month.static_from_component(comp, 1.0)
+    scal, ocean, init, vec = (torch.tensor(a) for a in udeb_inputs(comp, 4, b=4))
+    before = udeb_month.udeb_year.launches
+    got = udeb_month.udeb_year(st, scal, ocean, init, vec)
+    want = udeb_month.udeb_year_plain(st, scal, ocean, init, vec)
+    assert udeb_month.udeb_year.launches == before
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert got[0].shape == (2 * n_layers, 4)
+
+
+@pytest.fixture
+def stub_udeb_library(monkeypatch):
+    """The kernel's library replaced by one that states a layer limit of 409
+    (float64) / 818 (float32) and fails every other call."""
+    from types import SimpleNamespace
+
+    from rscm_tpu_torch.ops import build
+
+    def unexpected(*args):
+        raise AssertionError("called past the layer check")
+
+    lib = SimpleNamespace(
+        udeb_year_max_layers_f64=lambda: 409, udeb_year_max_layers_f32=lambda: 818,
+        udeb_year_config_f64=unexpected, udeb_year_config_f32=unexpected,
+    )
+    monkeypatch.setattr(build, "load", lambda name: lib)
+    udeb_month.max_kernel_layers.cache_clear()
+    yield {torch.float64: 409, torch.float32: 818}
+    udeb_month.max_kernel_layers.cache_clear()
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_udeb_kernel_layer_limit_is_the_librarys(stub_udeb_library, dtype):
+    limit = stub_udeb_library[dtype]
+    assert udeb_month.max_kernel_layers(dtype) == limit
+    udeb_month._check_layers(limit, dtype)
+    # above the limit the kernel path raises before it asks for a launch
+    # configuration, and says why
+    with pytest.raises(ValueError, match=f"at most {limit} layers.*shared memory"):
+        udeb_month.kernel_config(limit + 1, dtype)
 
 
 def lamcalc_setup(b=B, seed=0):
@@ -162,10 +213,11 @@ def cuda():
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("n_layers", [2, 3, 17, 50])
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-def test_kernels_match_plain_versions_on_card(cuda, dtype):
+def test_kernels_match_plain_versions_on_card(cuda, dtype, n_layers):
     rtol = 1e-12 if dtype == torch.float64 else 1e-5
-    comp = ClimateUDEB()
+    comp = ClimateUDEB(n_layers=n_layers)
     st = udeb_month.static_from_component(comp, 1.0)
     args = [torch.tensor(a, dtype=dtype, device=cuda) for a in udeb_inputs(comp, 0, b=1001)]
     before = udeb_month.udeb_year.launches
@@ -180,6 +232,23 @@ def test_kernels_match_plain_versions_on_card(cuda, dtype):
                                lamcalc_kernel.lamcalc_plain(lst, x), rtol=rtol, atol=rtol)
     with pytest.raises(RuntimeError, match="backward"):
         lamcalc_kernel.lamcalc(lst, x.clone().requires_grad_(True))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_kernel_takes_its_layer_limit_on_card(cuda, dtype):
+    limit = udeb_month.max_kernel_layers(dtype)
+    assert limit >= 400  # well above the default of 50 layers
+    for n in (limit, limit + 1):
+        comp = ClimateUDEB(n_layers=n)
+        st = udeb_month.static_from_component(comp, 1.0)
+        args = [torch.tensor(a, dtype=dtype, device=cuda) for a in udeb_inputs(comp, 1, b=65)]
+        if n > limit:
+            with pytest.raises(ValueError, match=f"at most {limit} layers"):
+                udeb_month.udeb_year(st, *args)
+            continue
+        for g, w in zip(udeb_month.udeb_year(st, *args), udeb_month.udeb_year_plain(st, *args)):
+            assert torch.equal(g, w)
 
 
 def test_kernel_build_names_libraries_by_source_and_flags(tmp_path, monkeypatch):
