@@ -37,7 +37,20 @@ Phases, each printed with its elapsed time:
               contraction (17e12 FP64 / 33.5e12 FP32 additions or
               multiplications a second: the kernels are built with
               ``-fmad=false``), a division counted at the FMA-pipe
-              instructions it takes.
+              instructions it takes;
+6. magicc  -- the ten-component emissions-driven MAGICC graph
+              (``build_magicc_model``, 1850-2100, ``history_dtype="bfloat16"``,
+              which resolves to the exp-sum ocean-carbon engine) at 100,000
+              members in float64 through ``EnsembleRunner.run``, swept as the
+              JAX package's bench sweeps it (ECS, kappa,
+              ``TerrestrialCarbon.beta``, seed 3): both launch counts must be
+              250 and every output finite; 64 members re-run with the plain
+              engines must agree within 1e-10; a ring-engine run (10,000
+              members, 1850-1950) must agree with its exp-sum twin within the
+              CPU test's bounds; it prints the warm run's wall and
+              member-years/s, device busy time and idle share, the top device
+              operations with both kernels' ms a launch, the PyTorch calls and
+              device operations a year, and peak device memory.
 
 Any failed check raises and the script exits non-zero.  The last three lines
 are the per-kernel JSON record, the ``nvidia-smi`` name/power line and
@@ -72,6 +85,13 @@ RAGGED = 99_997
 LAYER_CHECKS = (2, 3, 17, 50, 100)
 #: the second main path: a narrower ocean through month_engine="auto"
 SECOND = {"members": 10_000, "n_layers": 30, "checked": 16}
+#: the MAGICC path: members, members re-run through the plain engines, and
+#: the ring-engine check's members and last year
+MAGICC = {"members": 100_000, "checked": 64, "ring_members": 10_000, "ring_last_year": 1950.0}
+MAGICC_OUT = ["Surface Temperature", "Atmospheric Concentration|CO2"]
+#: ring engine against its exp-sum twin, max |ring - expsum| / max |expsum|
+#: per variable (tests/test_torch_magicc_graph.py::RING_TWIN)
+RING_TWIN = {"float32": 1e-8, "bfloat16": 5e-3}
 DEVICE = "cuda"
 #: kernel vs plain version, |kernel - plain| <= atol + rtol * |plain|.  Both do
 #: the same operations in the same order and the kernels are built with
@@ -617,14 +637,19 @@ def phase_second_path():
                 temps[:k], plain_out, 1e-10, 1e-10)
 
 
-def profile_main(runner, params, wall, smi):
-    """Device time of one main-path run by kernel, from torch.profiler, and
-    the device's idle share against the run's wall time."""
+def profile_main(runner, params, wall, smi, out_vars=("Surface Temperature",),
+                 what="main-path", n_steps=None, host_ops=True):
+    """Device time of one run by kernel, from torch.profiler, and the
+    device's idle share against the run's wall time; with ``n_steps``, the
+    device operations a year too.  ``host_ops=False`` records device
+    activity only (tracing every host operator of a run with ~400,000 of
+    them costs minutes)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        runner.run(params, out_vars=["Surface Temperature"])
+    activities = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if host_ops else [])
+    with profile(activities=activities) as prof:
+        runner.run(params, out_vars=list(out_vars))
         torch.cuda.synchronize()
     # device-side events only (kernels, copies): the CPU-op rows carry the
     # same device time again under the op's name
@@ -637,16 +662,147 @@ def profile_main(runner, params, wall, smi):
     if not rows:
         log("  profile: the profiler recorded no device time (not measured)")
         return
-    log(f"  profile of one main-path run: device busy {busy_ms:.1f} ms of a {wall * 1e3:.1f} ms "
+    log(f"  profile of one {what} run: device busy {busy_ms:.1f} ms of a {wall * 1e3:.1f} ms "
         f"unprofiled wall (idle share {1 - busy_ms / (wall * 1e3):.3f}) on {smi}; "
         f"top device time:")
     for ms, count, key in sorted(rows, reverse=True)[:10]:
         log(f"    {ms:9.2f} ms {ms / busy_ms:6.1%} x{count:<6d} {key[:90]}")
+    if n_steps:
+        launches = sum(count for _, count, _ in rows)
+        log(f"  profile: {launches} device operations (kernels and copies) in the {what} run, "
+            f"{launches / n_steps:.1f} a year")
     for kernel in ("udeb_year_kernel", "lamcalc_kernel"):
         for ms, count, key in rows:
             if kernel in key:
                 log(f"  profile: {kernel} {ms:.2f} ms over {count} launches "
-                    f"({ms / count:.4f} ms a launch) on the main path")
+                    f"({ms / count:.4f} ms a launch) on the {what} path")
+
+
+def count_torch_calls(fn):
+    """PyTorch operator calls ``fn`` makes (every aten operator the
+    dispatcher sees: arithmetic, views, copies, indexing)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        calls = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            Count.calls += 1
+            return func(*args, **(kwargs or {}))
+
+    with Count():
+        fn()
+    return Count.calls
+
+
+def magicc_sweep(n, seed=3):
+    """The JAX package's bench sweep (``bench.py:237-246``)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return {
+        "ClimateUDEB.ecs": rng.uniform(1.8, 5.5, n),
+        "ClimateUDEB.kappa": rng.uniform(0.4, 1.5, n),
+        "TerrestrialCarbon.beta": rng.uniform(0.3, 0.9, n),
+    }
+
+
+def phase_magicc(smi):
+    """The ten-component MAGICC graph at 100,000 members x 251 years."""
+    import numpy as np
+    import torch
+
+    from rscm_tpu_torch.magicc.coupled import build_magicc_model
+    from rscm_tpu_torch.ops.lamcalc_kernel import lamcalc
+    from rscm_tpu_torch.ops.udeb_month import udeb_year
+    from rscm_tpu_torch.parallel import EnsembleRunner
+
+    ocean_params = {"history_dtype": "bfloat16"}
+    model = build_magicc_model(ocean_params=ocean_params)
+    n_years = len(model.time_axis)
+    n_steps = n_years - 1
+    ocean = next(c for c in model.graph.nodes if type(c).__name__ == "OceanCarbon")
+    engine = ocean.resolved_engine()
+    log(f"  MAGICC graph: {len(model.exec_order)} nodes, {n_years} years, ocean carbon "
+        f"engine {engine!r} (window {ocean.max_history_months} months, history_dtype "
+        f"{ocean.history_dtype!r})")
+    if engine != "expsum":
+        raise AssertionError(f"the MAGICC path resolved to the {engine!r} engine")
+    b = MAGICC["members"]
+    sweep = magicc_sweep(b)
+    runner = EnsembleRunner(model)
+    params = runner.batched_params(sweep)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    udeb_year.launches = 0
+    lamcalc.launches = 0
+    out = runner.run(params, out_vars=MAGICC_OUT)
+    torch.cuda.synchronize()
+    launches = {"udeb_year": udeb_year.launches, "lamcalc": lamcalc.launches}
+    peak = torch.cuda.max_memory_allocated()
+    log(f"  MAGICC path: {b} members x {n_years} years, float64; launches {launches}; "
+        f"peak device memory {peak / 2**30:.2f} GiB on {smi}")
+    if launches != {"udeb_year": n_steps, "lamcalc": n_steps}:
+        raise AssertionError(f"MAGICC path launches {launches}, expected {n_steps} each")
+    for name, arr in out.items():
+        if tuple(arr.shape)[:2] != (b, n_years) or not bool(torch.isfinite(arr).all()):
+            raise AssertionError(f"MAGICC output {name}: shape {tuple(arr.shape)}, "
+                                 "or non-finite values")
+    temps, co2 = out["Surface Temperature"], out["Atmospheric Concentration|CO2"][..., 0]
+    w = torch.tensor(FOURBOX_WEIGHTS, dtype=temps.dtype, device=temps.device)
+    final = (temps[:, -1] * w).sum(-1)
+    log(f"  2100: global warming min {float(final.min()):.3f} K, median "
+        f"{float(final.median()):.3f} K, max {float(final.max()):.3f} K; CO2 median "
+        f"{float(co2[:, -1].median()):.2f} ppm")
+
+    # the plain versions of both kernels on the first members (the same
+    # per-member arithmetic; reductions may run in another order)
+    k = MAGICC["checked"]
+    plain = EnsembleRunner(build_magicc_model(
+        ocean_params=ocean_params, udeb_params={"month_engine": "torch"}))
+    plain_out = plain.run(plain.batched_params({n: v[:k] for n, v in sweep.items()}),
+                          out_vars=MAGICC_OUT)
+    for name in MAGICC_OUT:
+        check_close(f"MAGICC {k} members {name}, month_engine='torch' vs the kernels",
+                    out[name][:k], plain_out[name], 1e-10, 1e-10)
+    del plain, plain_out
+
+    # the ring engine's (B, N) @ (N, 12) product on the card, against its
+    # exp-sum twin, in the run's dtype and with a bfloat16 history
+    ring_years = np.arange(1850.0, MAGICC["ring_last_year"] + 1.0)
+    ring_sweep = magicc_sweep(MAGICC["ring_members"], seed=5)
+    twin = {}
+    for eng, history in (("expsum", "float32"), ("ring", "float32"), ("ring", "bfloat16")):
+        r = EnsembleRunner(build_magicc_model(
+            years=ring_years, ocean_params={"engine": eng, "history_dtype": history}))
+        twin[(eng, history)] = r.run(r.batched_params(ring_sweep), out_vars=MAGICC_OUT)
+    for history, bound in sorted(RING_TWIN.items()):
+        for name in MAGICC_OUT:
+            a, ref = twin[("ring", history)][name], twin[("expsum", "float32")][name]
+            err = float((a - ref).abs().max() / ref.abs().max())
+            log(f"  ring ({history} history) vs exp-sum, {MAGICC['ring_members']} members x "
+                f"{len(ring_years)} years, {name}: max |diff| / max |exp-sum| {err:.3e} "
+                f"(bound {bound:g})")
+            if not err < bound or not bool(torch.isfinite(a).all()):
+                raise AssertionError(f"ring ({history}) disagrees with exp-sum on {name}")
+    del twin
+
+    # timing: a warm run, its profile, and the calls a year at 64 members
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    runner.run(params, out_vars=MAGICC_OUT)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    log(f"  MAGICC path: warm wall {wall:.3f} s, {b * n_steps / wall:.4e} member-years/s "
+        f"on {smi}")
+    profile_main(runner, params, wall, smi, out_vars=MAGICC_OUT, what="MAGICC",
+                 n_steps=n_steps, host_ops=False)
+    small = runner.batched_params({n: v[:k] for n, v in sweep.items()})
+    calls = count_torch_calls(lambda: runner.run(small, out_vars=MAGICC_OUT))
+    log(f"  MAGICC path: {calls} PyTorch operator calls a run, {calls / n_steps:.1f} a year "
+        f"(at {k} members; the count does not depend on the batch)")
+    return launches
 
 
 def phase_timing(smi, runner, params, launches, n_steps, errs, div_instr):
@@ -749,6 +905,9 @@ def main():
         phase_second_path()
     with Phase("timing"):
         kernels = phase_timing(smi, runner, params, launches, n_steps, errs, div_instr)
+    del runner, params
+    with Phase("magicc"):
+        phase_magicc(smi)
 
     import torch
 

@@ -7,6 +7,12 @@ members with a ``{"Component.param": (B,) ndarray}`` dict.  Both packages
 number the nodes of a model built the same way identically, so one
 function turns those numpy arrays into the parameter dict the port's
 ``EnsembleRunner.run`` takes.
+
+Static parameters (an engine, a storage dtype, a forcing method, a layer
+count) are part of a component, not of a run: :func:`static_params_from_jax`
+reads them off a JAX model's components and :func:`apply_static_params`
+rebuilds the port model's components with them.  The JAX model is only
+read through its attributes; nothing of the JAX package is imported.
 """
 
 from __future__ import annotations
@@ -16,7 +22,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-__all__ = ["params_from_jax"]
+__all__ = ["apply_static_params", "params_from_jax", "static_params_from_jax"]
 
 
 def params_from_jax(
@@ -50,3 +56,73 @@ def params_from_jax(
     if swept:
         raise KeyError(f"params_from_jax: unknown swept parameter(s) {sorted(swept)}")
     return out
+
+
+#: static parameters naming one of the JAX package's engines, with the
+#: port's engine for each
+_ENGINES = {("ClimateUDEB", "month_engine"): {"auto": "auto", "xla": "torch", "pallas": "cuda"}}
+#: static parameters that choose how the TPU computes the same function and
+#: have no counterpart here (the port's Thomas solve is sequential)
+_TPU_ONLY = {("ClimateUDEB", "tridiag_solver")}
+
+
+def _host_static(value):
+    """A static parameter value as the port holds it: an impulse-response
+    form becomes the port's own ``IrfForm``, arrays become numpy copies."""
+    if all(hasattr(value, k) for k in ("kind", "coefficients", "timescales")):
+        from rscm_tpu_torch.magicc.carbon.ocean import IrfForm
+
+        return IrfForm(value.kind, tuple(value.coefficients), tuple(value.timescales))
+    if isinstance(value, np.ndarray):
+        return np.array(value, dtype=np.float64)
+    return value
+
+
+def static_params_from_jax(jax_model) -> Dict[str, dict]:
+    """``{node_key: {name: value}}`` of every static parameter of a JAX
+    package model's components, keyed as the port numbers the same graph."""
+    out: Dict[str, dict] = {}
+    for node, comp in enumerate(jax_model.graph.nodes):
+        cls = type(comp).__name__
+        static = {}
+        for name, decl in getattr(comp, "_component_parameters", {}).items():
+            if not decl.static or (cls, name) in _TPU_ONLY:
+                continue
+            value = _host_static(getattr(comp, name))
+            if (cls, name) in _ENGINES:
+                value = _ENGINES[(cls, name)][value]
+            static[name] = value
+        if static:
+            out[str(node)] = static
+    return out
+
+
+def apply_static_params(model, statics: Dict[str, dict]) -> None:
+    """Rebuild the port ``model``'s components with ``statics`` (a
+    :func:`static_params_from_jax` result) before it runs: each named node
+    becomes a new component of its class with its other parameters kept,
+    and its internal state restarts from the new component's initial state
+    (the execution plan stays: it comes from the class's declarations).
+    """
+    if model.time_index != 0:
+        raise ValueError(
+            "apply_static_params: the model has been run to index "
+            f"{model.time_index}; static parameters change the components' "
+            "internal states, so apply them to a fresh model"
+        )
+    for key, static in statics.items():
+        node = int(key)
+        comp = model.graph.nodes[node]
+        decls = getattr(comp, "_component_parameters", {})
+        unknown = set(static) - set(decls)
+        if unknown:
+            raise KeyError(
+                f"apply_static_params: {type(comp).__name__} (node {key}) has no "
+                f"parameter(s) {sorted(unknown)}"
+            )
+        params = {name: getattr(comp, name) for name in decls}
+        params.update(static)
+        new = type(comp)(**params)
+        model.graph.nodes[node] = new
+        model.component_states[node] = new.create_initial_state()
+    model._state_version += 1

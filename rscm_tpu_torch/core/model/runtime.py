@@ -56,6 +56,9 @@ class Model:
         self.collection = collection
         self.time_axis = time_axis
         self.time_index = 0
+        #: bumped whenever the run changes the model's data or internal
+        #: states, so cached copies of them (EnsembleRunner) go stale
+        self._state_version = 0
         self.grid_weights = grid_weights
         self.read_transforms = read_transforms
         self.write_transforms = write_transforms
@@ -139,6 +142,7 @@ class Model:
 
         ModelProgram(self, device=resolve_device(device)).run_into_collection(self)
         self.time_index = len(self.time_axis) - 1
+        self._state_version += 1
 
     # -- results --------------------------------------------------------------
 

@@ -36,13 +36,22 @@ def static_value(x):
     return None
 
 
+def _host(out):
+    """A 0-d numpy result as a numpy scalar: a 0-d array on the left of an
+    operator with a tensor raises (numpy defers to the tensor, which does
+    not take arrays), where a numpy scalar acts like a Python float."""
+    if isinstance(out, np.ndarray) and out.ndim == 0:
+        return out[()]
+    return out
+
+
 def _dispatch(np_name, torch_name=None):
     torch_name = torch_name or np_name
 
     def fn(*args, **kwargs):
         if _is_tensor(*args):
             return getattr(torch, torch_name)(*args, **kwargs)
-        return getattr(np, np_name)(*args, **kwargs)
+        return _host(getattr(np, np_name)(*args, **kwargs))
 
     fn.__name__ = np_name
     return fn
@@ -57,6 +66,8 @@ abs = _dispatch("abs")  # noqa: A001
 sign = _dispatch("sign")
 tanh = _dispatch("tanh")
 isnan = _dispatch("isnan")
+clip = _dispatch("clip", "clamp")
+take = _dispatch("take")
 
 
 def _pair(a, b):
@@ -71,13 +82,13 @@ def _pair(a, b):
 def maximum(a, b):
     if _is_tensor(a, b):
         return torch.maximum(*_pair(a, b))
-    return np.maximum(a, b)
+    return _host(np.maximum(a, b))
 
 
 def minimum(a, b):
     if _is_tensor(a, b):
         return torch.minimum(*_pair(a, b))
-    return np.minimum(a, b)
+    return _host(np.minimum(a, b))
 
 
 def where(pred, on_true, on_false):
@@ -92,7 +103,7 @@ def where(pred, on_true, on_false):
         on_true = torch.as_tensor(on_true, dtype=dtype, device=ref.device)
         on_false = torch.as_tensor(on_false, dtype=dtype, device=ref.device)
         return torch.where(pred, on_true, on_false)
-    return np.where(pred, on_true, on_false)
+    return _host(np.where(pred, on_true, on_false))
 
 
 def asarray(x, like=None):

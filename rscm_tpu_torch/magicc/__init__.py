@@ -1,10 +1,50 @@
 """
 MAGICC7-derived component library.
 
-This slice of the port carries the climate core: ClimateUDEB (4-box
-atmosphere + upwelling-diffusion ocean) with its LAMCALC feedback solve.
+Port of ``rscm_tpu/magicc``: the ten components of the emissions-driven
+MAGICC graph (:func:`build_magicc_model`) —
+
+- Forcing: GhgForcing (CO2/CH4/N2O, IPCCTAR + OLBL methods), OzoneForcing,
+  AerosolDirect, AerosolIndirect
+- Chemistry: CH4Chemistry, N2OChemistry
+- Carbon: TerrestrialCarbon, OceanCarbon, CO2Budget
+- Climate: ClimateUDEB (4-box atmosphere + upwelling-diffusion ocean)
+
+Not ported yet: HalocarbonChemistry, and the modules beyond the reference
+(Permafrost, SeaLevelRise).
 """
 
+from .forcing.ghg import ForcingMethod, GhgForcing, GhgForcingBuilder
+from .chemistry.ch4 import CH4Chemistry, CH4ChemistryBuilder
+from .chemistry.n2o import N2OChemistry, N2OChemistryBuilder
+from .forcing.ozone import OzoneForcing, OzoneForcingBuilder
+from .forcing.aerosol_direct import AerosolDirect, AerosolDirectBuilder
+from .forcing.aerosol_indirect import AerosolIndirect, AerosolIndirectBuilder
+from .carbon.terrestrial import TerrestrialCarbon, TerrestrialCarbonBuilder
+from .carbon.ocean import OceanCarbon, OceanCarbonBuilder
+from .carbon.budget import CO2Budget, CO2BudgetBuilder
 from .climate.udeb import ClimateUDEB, ClimateUDEBBuilder
 
-__all__ = ["ClimateUDEB", "ClimateUDEBBuilder"]
+__all__ = [
+    "AerosolDirect",
+    "AerosolDirectBuilder",
+    "AerosolIndirect",
+    "AerosolIndirectBuilder",
+    "CH4Chemistry",
+    "CH4ChemistryBuilder",
+    "CO2Budget",
+    "CO2BudgetBuilder",
+    "ClimateUDEB",
+    "ClimateUDEBBuilder",
+    "ForcingMethod",
+    "GhgForcing",
+    "GhgForcingBuilder",
+    "N2OChemistry",
+    "N2OChemistryBuilder",
+    "OceanCarbon",
+    "OceanCarbonBuilder",
+    "OzoneForcing",
+    "OzoneForcingBuilder",
+    "TerrestrialCarbon",
+    "TerrestrialCarbonBuilder",
+]

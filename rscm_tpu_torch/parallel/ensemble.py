@@ -42,6 +42,24 @@ class EnsembleRunner:
         self.dtype = dtype
         self.program = ModelProgram(model, dtype=dtype, device=self.device)
         self._inputs = None
+        self._inputs_version = self._model_version()
+
+    def _model_version(self):
+        """Staleness key of the model's mutable state (the TPU package's
+        ``ensemble.py:65-67``)."""
+        return (self.model.time_index, self.model._state_version)
+
+    def refresh_inputs(self):
+        """Drop the cached device copies of the model's inputs.
+
+        :meth:`run` gathers the model's exogenous data and internal states
+        onto the device on first use and reuses them.  The cache drops
+        itself when the model is run (its ``time_index`` or
+        ``_state_version`` changes); call this after any other in-place
+        change to the model's data.
+        """
+        self._inputs = None
+        self._inputs_version = self._model_version()
 
     def base_params(self) -> dict:
         return self.program.gather_params()
@@ -128,7 +146,10 @@ class EnsembleRunner:
                     v, dtype=self.dtype, device=self.device
                 )
 
-        # shared model inputs, moved to the device once per runner
+        # shared model inputs, moved to the device once and reused until the
+        # model's state changes
+        if self._model_version() != self._inputs_version:
+            self.refresh_inputs()
         if self._inputs is None:
             self._inputs = (p.gather_exo(), p.gather_internals())
         exo, internals = self._inputs

@@ -1,7 +1,7 @@
 """The port stands alone: no JAX, nothing of ``rscm_tpu`` or ``rscm``.
 
 - Every module of ``rscm_tpu_torch`` imports in a fresh interpreter where
-  ``import jax`` fails.
+  ``import jax`` fails, and the MAGICC graph builds and runs there.
 - No module of the port, and not ``chip_smoke.py``, imports ``jax``,
   ``rscm_tpu`` or ``rscm`` anywhere (an AST scan, so imports inside
   functions count too).
@@ -40,6 +40,47 @@ def test_every_module_imports_without_jax():
         "import importlib\n"
         f"for name in {modules!r}:\n"
         "    importlib.import_module(name)\n"
+        "assert not any(m == 'rscm_tpu' or m.startswith(('rscm_tpu.', 'rscm.')) or m == 'rscm'"
+        " for m in sys.modules), 'the JAX package was imported'\n"
+        "print('ok')\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+MAGICC_MODULES = [
+    "rscm_tpu_torch.magicc.chemistry.prescribed",
+    "rscm_tpu_torch.magicc.chemistry.ch4",
+    "rscm_tpu_torch.magicc.chemistry.n2o",
+    "rscm_tpu_torch.magicc.forcing.ghg",
+    "rscm_tpu_torch.magicc.forcing.ozone",
+    "rscm_tpu_torch.magicc.forcing.aerosol_direct",
+    "rscm_tpu_torch.magicc.forcing.aerosol_indirect",
+    "rscm_tpu_torch.magicc.carbon.terrestrial",
+    "rscm_tpu_torch.magicc.carbon.ocean",
+    "rscm_tpu_torch.magicc.carbon.budget",
+    "rscm_tpu_torch.magicc.coupled",
+]
+
+
+def test_magicc_graph_builds_and_runs_without_jax():
+    """The ten-component graph's modules import, and a short graph builds
+    and runs on the CPU, in an interpreter where ``import jax`` fails."""
+    assert set(MAGICC_MODULES) <= set(port_modules())
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "import importlib\n"
+        f"for name in {MAGICC_MODULES!r}:\n"
+        "    importlib.import_module(name)\n"
+        "import numpy as np\n"
+        "from rscm_tpu_torch.magicc.coupled import build_magicc_model\n"
+        "model = build_magicc_model(years=np.arange(1850.0, 1856.0))\n"
+        "model.run(device='cpu')\n"
+        "co2 = model.collection.get_data('Atmospheric Concentration|CO2').values()\n"
+        "assert np.isfinite(np.asarray(co2)[1:]).all()\n"
         "assert not any(m == 'rscm_tpu' or m.startswith(('rscm_tpu.', 'rscm.')) or m == 'rscm'"
         " for m in sys.modules), 'the JAX package was imported'\n"
         "print('ok')\n"

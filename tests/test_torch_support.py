@@ -54,3 +54,69 @@ def step_erf(years, level=3.71, step_year=1851.0):
 
 def values(model, name):
     return np.asarray(model.collection.get_data(name).values())
+
+
+def build_single(pkg, component, years, exogenous, initial):
+    """A one-component model on ``years`` (axis from values) built with
+    package ``pkg``: ``exogenous`` maps each input variable to ``(values,
+    unit)``; ``initial`` gives the state variables' initial values."""
+    core = importlib.import_module(f"{pkg}.core")
+    spatial = importlib.import_module(f"{pkg}.core.spatial")
+    axis = core.TimeAxis.from_values(np.asarray(years, dtype=np.float64))
+    builder = core.ModelBuilder().with_time_axis(axis).with_component(component)
+    inputs = set(component.input_names())
+    for name, (vals, unit) in exogenous.items():
+        if name in inputs:
+            builder = builder.with_exogenous_variable(
+                name,
+                core.Timeseries(np.asarray(vals, dtype=np.float64)[:, None], axis,
+                                spatial.ScalarGrid(), unit),
+            )
+    if initial:
+        builder = builder.with_initial_values(dict(initial))
+    return builder.build()
+
+
+def params_from_config(config):
+    """MAGICC .CFG keys onto ClimateUDEB parameters (the port's copy of
+    ``tests/regression/test_ocean_udeb.py::params_from_config``)."""
+    return {
+        "ecs": config.get("core_climatesensitivity", 3.0),
+        "rf_2xco2": config.get("core_delq2xco2", 3.71),
+        "w_initial": config.get("core_initial_upwelling_rate", 3.5),
+        "w_variable_fraction": config.get("core_upwelling_variable_part", 0.7),
+        "depth_dependent_area": float(config.get("core_ocn_depthdependent", 1)),
+        "kappa_dkdt": config.get("core_verticaldiff_top_dkdt", -0.191),
+        "land_heat_capacity_enabled": bool(config.get("core_landheatcapacity_apply", 1)),
+        "land_hc_eff_thickness": config.get("core_landhc_effthickness", 300.0),
+        "k_lg": config.get("core_heatxchange_landground", 0.1),
+        "k_ns": config.get("core_heatxchange_northsouth", 0.31),
+        "feedback_cumt_sensitivity": config.get("core_feedback_cumtsensitivity", 0.08),
+        "feedback_q_sensitivity": config.get("core_feedback_qsensitivity", 7.84e-9),
+        "efficacy_apply": config.get("rf_efficacy_apply", 0),
+        "prescribed_efficacy_co2": config.get("rf_efficacy_co2", 1.0),
+    }
+
+
+def assert_phased(actual, expected, *, skip=5, shock_end=25, converge_start=55,
+                  shock_rtol=3e-2, converge_rtol=2e-2, final_rtol=2e-2, final_years=20,
+                  atol=1e-6, name=""):
+    """The phase windows and bounds of ``tests/regression/helpers.py::
+    assert_allclose_phased`` (indices < skip ignored; shock and transition
+    at shock_rtol, converge at converge_rtol, the last ``final_years`` at
+    final_rtol), without writing rows to the parity report."""
+    actual = np.asarray(actual).reshape(len(actual), -1)[:, 0]
+    expected = np.asarray(expected)
+    n = len(actual)
+    assert len(expected) == n, f"{name}: length mismatch {n} vs {len(expected)}"
+    with np.errstate(divide="ignore", invalid="ignore"):
+        rel = np.where(np.abs(expected) > atol, (actual - expected) / expected, 0.0)
+    s_end, c_start, f_start = min(shock_end, n), min(converge_start, n), max(skip, n - final_years)
+    phases = [("shock", skip, s_end, shock_rtol), ("transition", s_end, c_start, shock_rtol),
+              ("converge", c_start, f_start, converge_rtol), ("final", f_start, n, final_rtol)]
+    failures = [
+        f"{label}: max rel err {np.max(np.abs(rel[a:b])):.3%} > {rtol:.3%}"
+        for label, a, b, rtol in phases
+        if a < b and np.max(np.abs(rel[a:b])) > rtol
+    ]
+    assert not failures, f"{name}: " + "; ".join(failures)

@@ -6,7 +6,14 @@
   ``tests/test_udeb_pallas.py`` holds its batched kernel route.
 - The golden 10_full_default regression case (and the two other 1pctCO2 /
   short cases of ``tests/regression/test_ocean_udeb.py``) run through the
-  port as that file builds them, at its tolerances.
+  port as that file builds them, at its tolerances; the nine step-forcing
+  cases (01-07, 09, 11) run at that file's phase bounds, and a float32 run
+  of 10_full_default's axis under step forcing stays within the
+  reference's 5e-5 scale-relative drift of the float64 run
+  (``tests/test_dtype_drift.py``).
+- The runner's cached model inputs follow the model: after ``Model.run``
+  a new ensemble from ``start_idx=0`` gathers the final internal states,
+  as the reference's runner does (``rscm_tpu/parallel/ensemble.py:65-80``).
 """
 
 import numpy as np
@@ -17,7 +24,8 @@ from regression.helpers import fourbox_global_mean, get_variable_values, load_re
 from rscm_tpu.parallel import EnsembleRunner as JaxEnsembleRunner
 from rscm_tpu_torch.convert import params_from_jax
 from rscm_tpu_torch.parallel import EnsembleRunner
-from test_torch_support import build_udeb, step_erf
+from rscm_tpu_torch.core.model.program import ModelProgram
+from test_torch_support import assert_phased, build_udeb, params_from_config, step_erf
 
 YEARS = np.arange(1850.0, 1900.0)
 OUT = ["Surface Temperature", "Sea Surface Temperature", "Heat Uptake"]
@@ -116,3 +124,98 @@ def test_golden_cases_through_port(name, forcing, extra):
     temp = model.timeseries().get_fourbox_timeseries_by_name("Surface Temperature")
     np.testing.assert_allclose(fourbox_global_mean(temp.values()), expected, rtol=0.1,
                                atol=1e-6, err_msg=name)
+
+
+def test_runner_regathers_inputs_after_model_run():
+    """The reference drops its runner's cached inputs when the model's
+    ``(time_index, _state_version)`` changes; after ``Model.run`` both
+    runners start the next ensemble from the final internal states."""
+    years = YEARS[:20]
+    swept = {k: v[:4] for k, v in {
+        "ClimateUDEB.ecs": np.array([2.0, 2.5, 3.5, 4.5, 5.0]),
+        "ClimateUDEB.kappa": np.array([0.5, 0.8, 1.0, 1.2, 1.4]),
+    }.items()}
+    jax_model = build_udeb("rscm_tpu", years, step_erf(years), month_engine="xla")
+    model = build_udeb("rscm_tpu_torch", years, step_erf(years))
+    jax_runner = JaxEnsembleRunner(jax_model)
+    runner = EnsembleRunner(model, device="cpu")
+    jax_params = jax_runner.batched_params(swept)
+    params = runner.batched_params(swept)
+    first = runner.run(params, out_vars=OUT)
+    jax_runner.run(jax_params, out_vars=OUT)
+
+    jax_model.run()
+    model.run(device="cpu")
+    with pytest.warns(UserWarning, match="start_idx=0"):
+        want = jax_runner.run(jax_params, out_vars=OUT, start_idx=0)
+    with pytest.warns(UserWarning, match="start_idx=0"):
+        got = runner.run(params, out_vars=OUT, start_idx=0)
+    for name in OUT:
+        np.testing.assert_allclose(got[name].numpy(), np.asarray(want[name]), rtol=1e-8,
+                                   atol=1e-9, err_msg=name)
+    # the final ocean state moved the second ensemble away from the first
+    assert not torch.allclose(got["Heat Uptake"], first["Heat Uptake"])
+    assert runner._inputs_version == (model.time_index, model._state_version) == (19, 1)
+
+    runner.refresh_inputs()
+    assert runner._inputs is None
+
+
+STEP_CASES = [
+    ("01_diffusion_only", dict(shock_rtol=1.5e-2, converge_rtol=1.5e-2, final_rtol=1.5e-2)),
+    ("02_constant_upwelling", dict(shock_rtol=1.5e-2, converge_rtol=1.5e-2, final_rtol=1.5e-2)),
+    ("03_depth_dependent_area", dict(final_rtol=1e-2)),
+    ("04_variable_upwelling", {}),
+    ("05_temp_dependent_diffusivity", dict(converge_rtol=1.5e-2, final_rtol=1.5e-2)),
+    ("06_ground_heat", dict(shock_rtol=5e-2, skip=15, final_rtol=1.5e-2)),
+    ("07_interhemispheric_exchange", dict(shock_rtol=1.5e-2, converge_rtol=1.5e-2,
+                                          final_rtol=1.5e-2)),
+    ("09_time_varying_ecs", dict(final_rtol=1e-2)),
+    ("11_efficacy_ar6", dict(final_rtol=1e-2)),
+]
+
+
+@pytest.mark.parametrize("name, bounds", STEP_CASES, ids=[c[0] for c in STEP_CASES])
+def test_golden_step_cases_through_port(name, bounds):
+    """As ``tests/regression/test_ocean_udeb.py::run_step_scenario`` builds
+    and bounds these cases: ClimateUDEB from the case's config under the
+    abrupt-2xCO2 step, phases at that file's bounds (shock rtol 3e-2,
+    converge and final 2e-2 unless the case narrows or widens them)."""
+    df, config = load_regression_data("ocean_udeb", name)
+    years, expected = get_variable_values(df, "Surface Temperature")
+    erf = step_erf(years, config.get("core_delq2xco2", 3.71))
+    model = build_udeb("rscm_tpu_torch", years, erf, from_bounds=True,
+                       **params_from_config(config))
+    model.run(device="cpu")
+    temp = model.timeseries().get_fourbox_timeseries_by_name("Surface Temperature")
+    assert_phased(fourbox_global_mean(temp.values()), expected, atol=1e-6, name=name,
+                  **{"shock_rtol": 3e-2, **bounds})
+
+
+def test_float32_drift_on_golden_axis():
+    """A float32 run of the year loop against the float64 run on
+    10_full_default's axis under step forcing, each variable's max
+    |f32 - f64| over its max |f64|: below the reference's 5e-5
+    (``tests/test_dtype_drift.py::test_udeb_f32_drift_default``)."""
+    df, config = load_regression_data("ocean_udeb", "10_full_default")
+    years, _ = get_variable_values(df, "Surface Temperature")
+    erf = step_erf(years, config.get("core_delq2xco2", 3.71))
+
+    def trajectories(dtype):
+        model = build_udeb("rscm_tpu_torch", years, erf, from_bounds=True,
+                           **params_from_config(config))
+        prog = ModelProgram(model, dtype=dtype, device="cpu")
+        params = {nk: {pn: float(v) for pn, v in node.items()}
+                  for nk, node in prog.gather_params().items()}
+        endo, _ = prog.run_fn(prog.gather_endo(1), prog.gather_exo(), params,
+                              prog.gather_internals())
+        return {k: v.to(torch.float64).numpy() for k, v in endo.items()}
+
+    t64, t32 = trajectories(torch.float64), trajectories(torch.float32)
+    assert set(t64) >= {"Surface Temperature", "Heat Uptake"}
+    for name, a in t64.items():
+        assert t32[name].dtype == np.float64
+        scale = np.nanmax(np.abs(a))
+        scale = scale if np.isfinite(scale) and scale > 0 else 1.0
+        drift = float(np.nanmax(np.abs(a - t32[name])) / scale)
+        assert drift < 5e-5, f"{name}: float32 drift {drift:.2e}"
