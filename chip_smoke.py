@@ -92,6 +92,13 @@ MAGICC_OUT = ["Surface Temperature", "Atmospheric Concentration|CO2"]
 #: ring engine against its exp-sum twin, max |ring - expsum| / max |expsum|
 #: per variable (tests/test_torch_magicc_graph.py::RING_TWIN)
 RING_TWIN = {"float32": 1e-8, "bfloat16": 5e-3}
+#: the flagship path (bench.py:123-214): members, years, members re-run on the
+#: CPU, the sweep's seed; and the step-by-step executor's flagship run
+FLAGSHIP = {"members": 100_000, "years": 551, "checked": 64, "seed": 42, "step_years": 100,
+            "profile_years": 101}
+FLAGSHIP_OUT = ["Surface Temperature"]
+#: ClimateUDEB through step(): the years it steps
+HOST_UDEB_STEPS = 10
 DEVICE = "cuda"
 #: kernel vs plain version, |kernel - plain| <= atol + rtol * |plain|.  Both do
 #: the same operations in the same order and the kernels are built with
@@ -591,6 +598,11 @@ def phase_main():
         f"(rtol 0.1, atol 1e-06): {'pass' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError("golden 10_full_default check failed")
+
+    small = runner.batched_params({k: v[:n_check] for k, v in sweep.items()})
+    calls = count_torch_calls(lambda: runner.run(small, out_vars=["Surface Temperature"]))
+    log(f"  main path: {calls} PyTorch operator calls a run, {calls / n_steps:.1f} a year "
+        f"(at {n_check} members; the count does not depend on the batch)")
     return runner, params, launches, n_steps
 
 
@@ -805,6 +817,202 @@ def phase_magicc(smi):
     return launches
 
 
+def flagship_emissions(n_years):
+    """bench.py's emissions ramp (GtC / yr): slow growth, peak, decline."""
+    import numpy as np
+
+    return np.concatenate([
+        np.linspace(0.0, 2.0, 100), np.linspace(2.0, 12.0, 165),
+        np.linspace(12.0, 4.0, 86), np.full(max(0, n_years - 351), 4.0),
+    ])[:n_years]
+
+
+def build_flagship(n_years):
+    """The flagship graph of ``bench.py:123-180``, built with the port."""
+    import numpy as np
+
+    from rscm_tpu_torch.components import CO2ERF, CarbonCycle, TwoLayer
+    from rscm_tpu_torch.core import ModelBuilder, TimeAxis, Timeseries, VariableSchema
+
+    years = np.arange(1750.0, 1750.0 + n_years)
+    schema = VariableSchema()
+    for name, unit in [
+        ("Emissions|CO2|Anthropogenic", "GtC / yr"), ("Surface Temperature", "K"),
+        ("Deep Ocean Temperature", "K"), ("Atmospheric Concentration|CO2", "ppm"),
+        ("Cumulative Emissions|CO2", "Gt C"), ("Cumulative Land Uptake", "Gt C"),
+        ("Effective Radiative Forcing|CO2", "W/m^2"),
+    ]:
+        schema.add_variable(name, unit)
+    schema.add_aggregate("Effective Radiative Forcing", "W/m^2", "Sum",
+                         ["Effective Radiative Forcing|CO2"])
+    return (
+        ModelBuilder()
+        .with_time_axis(TimeAxis.from_values(years))
+        .with_schema(schema)
+        .with_component(CarbonCycle(tau=30.0, conc_pi=278.0, alpha_temperature=0.03))
+        .with_component(CO2ERF(erf_2xco2=3.93, conc_pi=278.0))
+        .with_component(TwoLayer(lambda0=1.1, a=0.0, efficacy=1.3, eta=0.8,
+                                 heat_capacity_surface=8.0, heat_capacity_deep=110.0))
+        .with_exogenous_variable("Emissions|CO2|Anthropogenic",
+                                 Timeseries.from_values(flagship_emissions(n_years), years))
+        .with_initial_values({
+            "Surface Temperature": 0.0, "Deep Ocean Temperature": 0.0,
+            "Atmospheric Concentration|CO2": 278.0, "Cumulative Emissions|CO2": 0.0,
+            "Cumulative Land Uptake": 0.0,
+        })
+        .build()
+    )
+
+
+def flagship_sweep(n, seed=FLAGSHIP["seed"]):
+    """bench.py's four-parameter sweep (``bench.py:189-197``)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return {
+        "TwoLayer.lambda0": rng.uniform(0.8, 1.8, n),
+        "TwoLayer.eta": rng.uniform(0.5, 1.2, n),
+        "CarbonCycle.tau": rng.uniform(15.0, 60.0, n),
+        "CO2ERF.erf_2xco2": rng.uniform(3.0, 4.5, n),
+    }
+
+
+def phase_flagship(smi):
+    """The flagship graph at 100,000 members x 551 years, as bench.py runs it."""
+    import torch
+
+    from rscm_tpu_torch.ops.lamcalc_kernel import lamcalc
+    from rscm_tpu_torch.ops.udeb_month import udeb_year
+    from rscm_tpu_torch.parallel import EnsembleRunner
+
+    model = build_flagship(FLAGSHIP["years"])
+    n_years = len(model.time_axis)
+    n_steps = n_years - 1
+    b = FLAGSHIP["members"]
+    sweep = flagship_sweep(b)
+    runner = EnsembleRunner(model)
+    params = runner.batched_params(sweep)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    udeb_year.launches = 0
+    lamcalc.launches = 0
+    t = time.perf_counter()
+    out = runner.run(params, out_vars=FLAGSHIP_OUT)
+    torch.cuda.synchronize()
+    first = time.perf_counter() - t
+    launches = {"udeb_year": udeb_year.launches, "lamcalc": lamcalc.launches}
+    peak = torch.cuda.max_memory_allocated()
+    log(f"  flagship path: {len(model.exec_order)} nodes, {b} members x {n_years} years, "
+        f"float64; launches {launches} (no kernel runs on this path); first run {first:.3f} s; "
+        f"peak device memory {peak / 2**30:.2f} GiB on {smi}")
+    if launches != {"udeb_year": 0, "lamcalc": 0}:
+        raise AssertionError(f"flagship path launches {launches}, expected none")
+    temps = out["Surface Temperature"]
+    if tuple(temps.shape) != (b, n_years, 1) or not bool(torch.isfinite(temps).all()):
+        raise AssertionError(f"flagship output: shape {tuple(temps.shape)}, or non-finite values")
+    final = temps[:, -1, 0]
+    log(f"  {1750 + n_years - 1}: warming min {float(final.min()):.3f} K, median "
+        f"{float(final.median()):.3f} K, max {float(final.max()):.3f} K")
+
+    k = FLAGSHIP["checked"]
+    cpu = EnsembleRunner(build_flagship(n_years), device="cpu")
+    cpu_out = cpu.run(cpu.batched_params({n: v[:k] for n, v in sweep.items()}),
+                      out_vars=FLAGSHIP_OUT)
+    for name in FLAGSHIP_OUT:
+        check_close(f"flagship {k} members {name}, the card vs the CPU",
+                    out[name][:k].cpu(), cpu_out[name], 1e-10, 1e-10)
+    del out, temps, cpu, cpu_out
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    runner.run(params, out_vars=FLAGSHIP_OUT)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    log(f"  flagship path: warm wall {wall:.3f} s, {b * n_steps / wall:.4e} member-years/s "
+        f"(first run {b * n_steps / first:.4e}) on {smi}")
+    del runner, params
+
+    # the profile and the call count over the first years at the same batch:
+    # tracing the ~925,000 device operations of the whole run takes minutes
+    n_short = FLAGSHIP["profile_years"]
+    short = EnsembleRunner(build_flagship(n_short))
+    short_params = short.batched_params(sweep)
+    short.run(short_params, out_vars=FLAGSHIP_OUT)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    short.run(short_params, out_vars=FLAGSHIP_OUT)
+    torch.cuda.synchronize()
+    short_wall = time.perf_counter() - t
+    log(f"  flagship path, first {n_short} years: warm wall {short_wall:.3f} s, "
+        f"{b * (n_short - 1) / short_wall:.4e} member-years/s on {smi}")
+    profile_main(short, short_params, short_wall, smi, out_vars=FLAGSHIP_OUT,
+                 what=f"{n_short}-year flagship", n_steps=n_short - 1, host_ops=False)
+    small = short.batched_params({n: v[:k] for n, v in sweep.items()})
+    calls = count_torch_calls(lambda: short.run(small, out_vars=FLAGSHIP_OUT))
+    log(f"  flagship path: {calls} PyTorch operator calls in {n_short - 1} years, "
+        f"{calls / (n_short - 1):.1f} a year (at {k} members; the count does not depend on "
+        f"the batch)")
+
+
+def phase_host_executor(smi, golden_base):
+    """The step-by-step executor on the card: the flagship at one member
+    against the year loop, and ClimateUDEB through ``step()``."""
+    import numpy as np
+    import torch
+
+    from rscm_tpu_torch.ops.lamcalc_kernel import lamcalc
+    from rscm_tpu_torch.ops.udeb_month import udeb_year
+
+    n_years = FLAGSHIP["step_years"]
+    loop, stepped = build_flagship(n_years), build_flagship(n_years)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    loop.run()
+    torch.cuda.synchronize()
+    loop_wall = time.perf_counter() - t
+    t = time.perf_counter()
+    stepped.run(compiled=False)
+    torch.cuda.synchronize()
+    step_wall = time.perf_counter() - t
+    log(f"  flagship, 1 member x {n_years} years on the card: year loop {loop_wall:.3f} s, "
+        f"step-by-step {step_wall:.3f} s on {smi}")
+    for item in loop.collection:
+        if item.name == "Emissions|CO2|Anthropogenic":
+            continue
+        a = torch.as_tensor(np.asarray(stepped.collection.get_data(item.name).values())[1:])
+        ref = torch.as_tensor(np.asarray(item.data.values())[1:])
+        check_close(f"flagship {item.name}: step-by-step vs the year loop", a, ref, 1e-12, 1e-12)
+
+    years = np.arange(1850.0, 1851.0 + HOST_UDEB_STEPS)
+    erf = ramp_forcing_1pct(years, golden_base["rf_2xco2"], 1850.0)
+    model = build_udeb_model(years, erf, golden_base)
+    udeb_year.launches = 0
+    lamcalc.launches = 0
+    t = time.perf_counter()
+    for _ in range(HOST_UDEB_STEPS):
+        model.step()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = {"udeb_year": udeb_year.launches, "lamcalc": lamcalc.launches}
+    log(f"  ClimateUDEB, {HOST_UDEB_STEPS} steps through step() on the card in {wall:.3f} s; "
+        f"launches {launches}")
+    if launches != {"udeb_year": HOST_UDEB_STEPS, "lamcalc": HOST_UDEB_STEPS}:
+        raise AssertionError(f"step() launches {launches}, expected {HOST_UDEB_STEPS} each")
+    loop = build_udeb_model(years, erf, golden_base)
+    loop.run()
+    cpu = build_udeb_model(years, erf, golden_base)
+    cpu.run(compiled=False, device="cpu")
+    for name in ("Surface Temperature", "Heat Uptake", "Ocean Heat Content",
+                 "Sea Surface Temperature"):
+        got = torch.as_tensor(np.asarray(model.collection.get_data(name).values())[1:])
+        for what, other in (("the year loop on the card", loop),
+                            ("step-by-step on the CPU", cpu)):
+            want = torch.as_tensor(np.asarray(other.collection.get_data(name).values())[1:])
+            check_close(f"ClimateUDEB {name}: step() on the card vs {what}", got, want,
+                        1e-10, 1e-10)
+
+
 def phase_timing(smi, runner, params, launches, n_steps, errs, div_instr):
     import torch
 
@@ -908,6 +1116,12 @@ def main():
     del runner, params
     with Phase("magicc"):
         phase_magicc(smi)
+    with Phase("flagship"):
+        phase_flagship(smi)
+    with Phase("host"):
+        _, _, config = read_golden("10_full_default")
+        phase_host_executor(smi, {"ecs": config["core_climatesensitivity"],
+                                  "rf_2xco2": config["core_delq2xco2"]})
 
     import torch
 

@@ -68,11 +68,21 @@ _TPU_ONLY = {("ClimateUDEB", "tridiag_solver")}
 
 def _host_static(value):
     """A static parameter value as the port holds it: an impulse-response
-    form becomes the port's own ``IrfForm``, arrays become numpy copies."""
+    form becomes the port's own ``IrfForm``, a halocarbon species table the
+    port's ``HalocarbonSpecies``, arrays become numpy copies."""
     if all(hasattr(value, k) for k in ("kind", "coefficients", "timescales")):
         from rscm_tpu_torch.magicc.carbon.ocean import IrfForm
 
         return IrfForm(value.kind, tuple(value.coefficients), tuple(value.timescales))
+    if isinstance(value, tuple) and value and all(
+        hasattr(v, "lifetime") and hasattr(v, "radiative_efficiency") for v in value
+    ):
+        from dataclasses import fields
+
+        from rscm_tpu_torch.magicc.chemistry.halocarbon import HalocarbonSpecies
+
+        names = [f.name for f in fields(HalocarbonSpecies)]
+        return tuple(HalocarbonSpecies(**{n: getattr(v, n) for n in names}) for v in value)
     if isinstance(value, np.ndarray):
         return np.array(value, dtype=np.float64)
     return value

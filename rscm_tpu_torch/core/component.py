@@ -26,6 +26,9 @@ from dataclasses import dataclass
 from enum import Enum
 from typing import Any, ClassVar, Dict, Optional
 
+import numpy as np
+import torch
+
 from .spatial import GridType
 from .state import FourBoxSlice, HemisphericSlice, StateValue
 
@@ -40,6 +43,8 @@ __all__ = [
     "ComponentMeta",
     "OutputState",
     "SolveContext",
+    "state_to_host",
+    "state_to_tensors",
 ]
 
 
@@ -230,6 +235,38 @@ class SolveContext:
     @property
     def dt(self):
         return self.t_next - self.t_current
+
+
+def state_to_tensors(state, dtype, device):
+    """A host-layout internal state as the year loop takes it: float leaves
+    as tensors of ``dtype`` on ``device``, other leaves as they are."""
+    if state is None:
+        return None
+
+    def cast(leaf):
+        arr = np.asarray(leaf)
+        if np.issubdtype(arr.dtype, np.floating):
+            return torch.as_tensor(arr, dtype=dtype, device=device)
+        return leaf
+
+    return {k: cast(v) for k, v in state.items()}
+
+
+def state_to_host(state, like):
+    """A year-loop internal state back in the host layout of ``like`` (the
+    state it started from): numpy leaves, without the member axis of a
+    one-member run where ``like``'s leaf has none, and Python floats where
+    ``like`` has them."""
+    return {k: _host_leaf(v, like.get(k)) for k, v in state.items()}
+
+
+def _host_leaf(leaf, like):
+    arr = leaf.detach().cpu().numpy() if isinstance(leaf, torch.Tensor) else np.asarray(leaf)
+    if like is not None and arr.shape == (1,) + np.shape(like):
+        arr = arr[0]
+    if isinstance(like, float):
+        return float(arr)
+    return arr
 
 
 def _get_window_field_doc(grid: str) -> str:

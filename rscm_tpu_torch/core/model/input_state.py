@@ -10,7 +10,7 @@ from __future__ import annotations
 
 from typing import Callable, Dict
 
-from ..state import FourBoxWindow, HemisphericWindow, ScalarWindow
+from ..state import FourBoxWindow, HemisphericWindow, ScalarWindow, host_window
 
 __all__ = ["InputState"]
 
@@ -41,26 +41,26 @@ class InputState:
 
     def get_scalar_window(self, name: str) -> ScalarWindow:
         window = self.get_window(name)
-        if not isinstance(window, ScalarWindow):
+        if not isinstance(host_window(window), ScalarWindow):
             raise TypeError(f"Variable '{name}' is not a scalar timeseries")
         return window
 
     def get_four_box_window(self, name: str) -> FourBoxWindow:
         window = self.get_window(name)
-        if not isinstance(window, FourBoxWindow):
+        if not isinstance(host_window(window), FourBoxWindow):
             raise TypeError(f"Variable '{name}' is not a FourBox timeseries")
         return window
 
     def get_hemispheric_window(self, name: str) -> HemisphericWindow:
         window = self.get_window(name)
-        if not isinstance(window, HemisphericWindow):
+        if not isinstance(host_window(window), HemisphericWindow):
             raise TypeError(f"Variable '{name}' is not a Hemispheric timeseries")
         return window
 
     def get_global(self, name: str):
         """Globally-aggregated current value of a variable."""
         window = self.get_window(name)
-        if isinstance(window, ScalarWindow):
+        if isinstance(host_window(window), ScalarWindow):
             return window.get()
         return window.current_global()
 

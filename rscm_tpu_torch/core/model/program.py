@@ -28,7 +28,7 @@ from typing import Dict
 import numpy as np
 import torch
 
-from ..component import SolveContext
+from ..component import SolveContext, state_to_host, state_to_tensors
 from ..state import StateValue, make_window
 from ..timeseries import VariableType
 from .graph import NullComponent
@@ -50,6 +50,14 @@ class ModelProgram:
             for node in model.exec_order
             if not isinstance(model.graph.nodes[node], NullComponent)
         ]
+        for node in self.exec_nodes:
+            component = model.graph.nodes[node]
+            if not getattr(component, "traceable", True):
+                raise TypeError(
+                    f"Component '{getattr(component, 'component_name', component)}' "
+                    f"cannot run in the year loop (arbitrary Python solve); the model "
+                    f"runs on the step-by-step executor instead."
+                )
         self.n_steps = len(model.time_axis)
         self.time_values = np.asarray(model.time_axis.values(), dtype=np.float64)
         self.time_bounds = np.asarray(model.time_axis.bounds(), dtype=np.float64)
@@ -196,18 +204,9 @@ class ModelProgram:
 
     def gather_internals(self) -> Dict[str, object]:
         """Internal states in the host layout, float leaves as tensors."""
-
-        def cast(leaf):
-            arr = np.asarray(leaf)
-            if np.issubdtype(arr.dtype, np.floating):
-                return self._tensor(arr)
-            return leaf
-
         return {
-            str(node): (
-                None
-                if self.model.component_states[node] is None
-                else {k: cast(v) for k, v in self.model.component_states[node].items()}
+            str(node): state_to_tensors(
+                self.model.component_states[node], self.dtype, self.device
             )
             for node in self.exec_nodes
         }
@@ -246,17 +245,6 @@ class ModelProgram:
         for node in self.exec_nodes:
             new_state = internals.get(str(node))
             if new_state is not None:
-                old_state = model.component_states[node]
-                model.component_states[node] = {
-                    k: _host_leaf(v, old_state.get(k)) for k, v in new_state.items()
-                }
-
-
-def _host_leaf(leaf, like):
-    """A final internal-state leaf as a host numpy array, without the
-    member axis of the single-member run where the host leaf ``like`` has
-    none."""
-    arr = leaf.detach().cpu().numpy() if isinstance(leaf, torch.Tensor) else np.asarray(leaf)
-    if like is not None and arr.shape == (1,) + np.shape(like):
-        arr = arr[0]
-    return arr
+                model.component_states[node] = state_to_host(
+                    new_state, model.component_states[node]
+                )

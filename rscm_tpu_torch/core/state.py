@@ -19,6 +19,9 @@ Mirrors ``crates/rscm-core/src/state/``:
   * read-side grid aggregation wraps a finer-grid array behind a coarser
     window (``AggregatingFourBoxWindow`` etc.).
 
+- :class:`DeviceWindow`: a host window whose reads come back as tensors
+  on a device (the step-by-step executor's windows).
+
 **Dual-mode**: the same window classes work on host numpy arrays
 (float64 exactness, ``None`` returns at boundaries) and on torch tensors
 inside the batched year loop (boundary reads clamp — the loop never reads
@@ -48,6 +51,8 @@ __all__ = [
     "FourBoxWindow",
     "HemisphericWindow",
     "make_window",
+    "DeviceWindow",
+    "host_window",
     "is_traced",
 ]
 
@@ -58,9 +63,15 @@ def is_traced(x) -> bool:
     return isinstance(x, torch.Tensor)
 
 
+def _region(row, region: int):
+    """One region of a ``(..., n_regions)`` row: a tensor column, or a numpy
+    scalar of a host row (as the TPU package's host windows return)."""
+    return row[..., region] if is_traced(row) else row[region]
+
+
 def _cols(row):
     """Per-region columns of a ``(..., n_regions)`` row."""
-    return [row[..., r] for r in range(row.shape[-1])]
+    return [_region(row, r) for r in range(row.shape[-1])]
 
 
 class VariableSource:
@@ -451,11 +462,11 @@ class ScalarWindow(_WindowBase):
     """Window over a scalar variable (mirror of ``TimeseriesWindow``)."""
 
     def at_start(self):
-        return self._row(self.current_index)[..., 0]
+        return _region(self._row(self.current_index), 0)
 
     def at_end(self):
         row = self._row_or_none(self.current_index + 1)
-        return None if row is None else row[..., 0]
+        return None if row is None else _region(row, 0)
 
     def get(self):
         if self.source == VariableSource.UpstreamOutput:
@@ -467,11 +478,11 @@ class ScalarWindow(_WindowBase):
         if not self._traced and int(self.current_index) == 0:
             return None
         row = self._row_or_none(self.current_index - 1)
-        return None if row is None else row[..., 0]
+        return None if row is None else _region(row, 0)
 
     def at_offset(self, offset: int):
         row = self._row_or_none(self.current_index + offset)
-        return None if row is None else row[..., 0]
+        return None if row is None else _region(row, 0)
 
     def last_n(self, n: int):
         """Most recent n values ending at the current index (inclusive).
@@ -498,7 +509,7 @@ class ScalarWindow(_WindowBase):
         return list(self.last_n(n))
 
     def interpolate(self, t):
-        return self._interp_row(t)[..., 0]
+        return _region(self._interp_row(t), 0)
 
 
 class _GridWindow(_WindowBase):
@@ -513,11 +524,11 @@ class _GridWindow(_WindowBase):
 
     # region-indexed access
     def at_start(self, region):
-        return self._row(self.current_index)[..., int(region)]
+        return _region(self._row(self.current_index), int(region))
 
     def at_end(self, region):
         row = self._row_or_none(self.current_index + 1)
-        return None if row is None else row[..., int(region)]
+        return None if row is None else _region(row, int(region))
 
     def get(self, region):
         if self.source == VariableSource.UpstreamOutput:
@@ -529,7 +540,7 @@ class _GridWindow(_WindowBase):
         if not self._traced and int(self.current_index) == 0:
             return None
         row = self._row_or_none(self.current_index - 1)
-        return None if row is None else row[..., int(region)]
+        return None if row is None else _region(row, int(region))
 
     # all-region access
     def at_start_all(self):
@@ -586,7 +597,7 @@ class _GridWindow(_WindowBase):
         return float(np.dot(row, w))
 
     def interpolate(self, t, region):
-        return self._interp_row(t)[..., int(region)]
+        return _region(self._interp_row(t), int(region))
 
     def interpolate_all(self, t):
         row = self._interp_row(t)
@@ -638,3 +649,71 @@ def make_window(
         grid=grid,
         aggregation=aggregation,
     )
+
+
+# ---------------------------------------------------------------------------
+# Device reads of host windows (the step-by-step executor)
+# ---------------------------------------------------------------------------
+
+#: the window methods that return values (every other attribute is the host
+#: window's own)
+_READS = frozenset({
+    "at_start", "at_end", "get", "previous", "at_offset", "last_n", "last_n_converted",
+    "interpolate", "at_start_all", "at_end_all", "get_all", "previous_all", "at_offset_all",
+    "interpolate_all", "at_start_slice", "at_end_slice", "get_slice", "current_global",
+    "previous_global",
+})
+
+
+class DeviceWindow:
+    """A host window whose reads come back as tensors on a device.
+
+    The step-by-step executor keeps every trajectory in the host collection
+    and reads it through a host window, with the reference's boundary
+    semantics (``None`` before the first and after the last row, asserted
+    history lengths); only the values a component reads are copied to the
+    device.  A variable the model computes reads with a leading member axis
+    of one, as in the year loop at one member; exogenous data reads without
+    one.
+    """
+
+    __slots__ = ("host", "_dtype", "_device", "_per_member")
+
+    def __init__(self, host, dtype, device, per_member: bool):
+        self.host = host
+        self._dtype = dtype
+        self._device = device
+        self._per_member = per_member
+
+    def _convert(self, value):
+        if value is None:
+            return None
+        if isinstance(value, _Slice):
+            return type(value)(*(self._convert(v) for v in value._values))
+        if isinstance(value, (list, tuple)):
+            return [self._convert(v) for v in value]
+        out = torch.as_tensor(np.asarray(value, dtype=np.float64)).to(
+            dtype=self._dtype, device=self._device
+        )
+        return out.unsqueeze(0) if self._per_member else out
+
+    def __getattr__(self, name):
+        attr = getattr(self.host, name)
+        if name not in _READS:
+            return attr
+
+        def read(*args, **kwargs):
+            return self._convert(attr(*args, **kwargs))
+
+        return read
+
+    def __len__(self):
+        return len(self.host)
+
+    def __repr__(self):
+        return f"DeviceWindow({type(self.host).__name__}, {self._device})"
+
+
+def host_window(window):
+    """The host window behind ``window`` (``window`` itself if it is one)."""
+    return window.host if isinstance(window, DeviceWindow) else window

@@ -6,17 +6,23 @@ MAGICC graph (:func:`build_magicc_model`) —
 
 - Forcing: GhgForcing (CO2/CH4/N2O, IPCCTAR + OLBL methods), OzoneForcing,
   AerosolDirect, AerosolIndirect
-- Chemistry: CH4Chemistry, N2OChemistry
+- Chemistry: CH4Chemistry, N2OChemistry (and HalocarbonChemistry, which
+  the graph does not use)
 - Carbon: TerrestrialCarbon, OceanCarbon, CO2Budget
 - Climate: ClimateUDEB (4-box atmosphere + upwelling-diffusion ocean)
 
-Not ported yet: HalocarbonChemistry, and the modules beyond the reference
-(Permafrost, SeaLevelRise).
+Not ported yet: the modules beyond the reference (Permafrost,
+SeaLevelRise).
 """
 
 from .forcing.ghg import ForcingMethod, GhgForcing, GhgForcingBuilder
 from .chemistry.ch4 import CH4Chemistry, CH4ChemistryBuilder
 from .chemistry.n2o import N2OChemistry, N2OChemistryBuilder
+from .chemistry.halocarbon import (
+    HALOCARBON_SPECIES,
+    HalocarbonChemistry,
+    HalocarbonChemistryBuilder,
+)
 from .forcing.ozone import OzoneForcing, OzoneForcingBuilder
 from .forcing.aerosol_direct import AerosolDirect, AerosolDirectBuilder
 from .forcing.aerosol_indirect import AerosolIndirect, AerosolIndirectBuilder
@@ -39,6 +45,9 @@ __all__ = [
     "ForcingMethod",
     "GhgForcing",
     "GhgForcingBuilder",
+    "HALOCARBON_SPECIES",
+    "HalocarbonChemistry",
+    "HalocarbonChemistryBuilder",
     "N2OChemistry",
     "N2OChemistryBuilder",
     "OceanCarbon",

@@ -17,10 +17,11 @@ fixed-size engines (:meth:`OceanCarbon.resolved_engine`):
   recursive exponential accumulators for everything older (a least-squares
   fit of the scaled IRF tail on the host).
 
-The port runs the year loop only (``ctx.scan_mode``); the twelve monthly
-sub-steps are a Python loop over ``(B,)`` tensors.  The TPU package's host
-path (``solve_ocean``, the newest-first engines) and checkpoint migration
-are not ported yet.
+The twelve monthly sub-steps are a Python loop over ``(B,)`` tensors.  The
+step-by-step executor runs the same yearly update at one member
+(:meth:`OceanCarbon._solve_step`), where the TPU package runs separate
+newest-first host engines (``solve_ocean``, ``_solve_ocean_expsum``).
+Checkpoint migration between engines is not ported yet.
 """
 
 from __future__ import annotations
@@ -32,7 +33,9 @@ import torch
 
 from rscm_tpu_torch.components._builder import make_builder
 from rscm_tpu_torch.core import xmath as xm
-from rscm_tpu_torch.core.component import Component, Input, Output, Parameter, State
+from rscm_tpu_torch.core.component import (
+    Component, Input, Output, Parameter, State, state_to_host, state_to_tensors,
+)
 
 __all__ = ["IrfForm", "OceanCarbon", "OceanCarbonBuilder", "OCEAN_CARBON_PRESETS"]
 
@@ -375,32 +378,38 @@ class OceanCarbon(Component):
         ``history_dtype``.  Exp-sum: the young window flips to oldest-first
         (``"flux_hist_of"``).
         """
+        out = self._to_loop_layout(state, start_idx)
+        storage = _STORAGE_DTYPES[self.history_dtype]
+        if self.resolved_engine() == "ring" and storage is not None:
+            out["flux_history"] = out["flux_history"].to(storage)
+        return out
+
+    def unpack_scan_state(self, state, end_idx: int, dt=None):
+        """Loop layout -> host (newest-first) after a run ending at
+        ``end_idx``; a bfloat16 ring history comes back as float32, as in
+        the TPU package."""
+        out = self._to_host_layout(state, end_idx)
+        if self.resolved_engine() == "ring" and _STORAGE_DTYPES[self.history_dtype] is not None:
+            out["flux_history"] = out["flux_history"].to(torch.float32)
+        return out
+
+    def _to_loop_layout(self, state, start_idx: int):
         if self.resolved_engine() == "expsum":
             out = {k: v for k, v in state.items() if k != "flux_history"}
             out["flux_hist_of"] = state["flux_history"].flip(-1)
             return out
         n = int(self.max_history_months)
         c0 = int(start_idx) * int(self.steps_per_year)
-        history = _gather(state["flux_history"], (c0 - 1 - np.arange(n)) % n)
-        storage = _STORAGE_DTYPES[self.history_dtype]
-        if storage is not None:
-            history = history.to(storage)
-        return {**state, "flux_history": history}
+        return {**state, "flux_history": _gather(state["flux_history"], (c0 - 1 - np.arange(n)) % n)}
 
-    def unpack_scan_state(self, state, end_idx: int, dt=None):
-        """Loop layout -> host (newest-first) after a run ending at
-        ``end_idx``; a bfloat16 ring history comes back as float32, as in
-        the TPU package."""
+    def _to_host_layout(self, state, end_idx: int):
         if self.resolved_engine() == "expsum":
             out = {k: v for k, v in state.items() if k != "flux_hist_of"}
             out["flux_history"] = state["flux_hist_of"].flip(-1)
             return out
         n = int(self.max_history_months)
         c_end = int(end_idx) * int(self.steps_per_year)
-        history = _gather(state["flux_history"], (c_end - 1 - np.arange(n)) % n)
-        if _STORAGE_DTYPES[self.history_dtype] is not None:
-            history = history.to(torch.float32)
-        return {**state, "flux_history": history}
+        return {**state, "flux_history": _gather(state["flux_history"], (c_end - 1 - np.arange(n)) % n)}
 
     # -- the batched yearly update ---------------------------------------------
 
@@ -503,12 +512,27 @@ class OceanCarbon(Component):
         fh_of = torch.cat([kept, fluxes], dim=-1)
         return fh_of, tail_accum.expand(b, -1), pco2_ocn, cumulative, total_flux_gtc
 
+    def _solve_step(self, ctx, inputs, internal_state):
+        """One year of the step-by-step executor: the year loop's update at
+        one member, the host-layout state (newest-first history) turned
+        into the loop layout before the year and back after it.  The
+        history keeps the run's dtype, as the TPU package's host engines
+        keep float64 whatever ``history_dtype`` says."""
+        like = inputs.ocean_pco2.at_start()
+        idx = int(ctx.step_index)
+        state = self._to_loop_layout(
+            state_to_tensors(internal_state, like.dtype, like.device), idx
+        )
+        outputs, state = self._solve_year(ctx, inputs, state)
+        return outputs, state_to_host(self._to_host_layout(state, idx + 1), internal_state)
+
     def solve_ctx(self, ctx, inputs, internal_state):
         if not getattr(ctx, "scan_mode", False):
-            raise NotImplementedError(
-                "OceanCarbon runs inside the model program's year loop "
-                "(Model.run / EnsembleRunner.run); the host solve is not ported"
-            )
+            return self._solve_step(ctx, inputs, internal_state)
+        return self._solve_year(ctx, inputs, internal_state)
+
+    def _solve_year(self, ctx, inputs, internal_state):
+        """The yearly update on the loop-layout state."""
         dt = ctx.t_next - ctx.t_current
         co2 = inputs.co2_concentration.get()
         sst = inputs.sst.get()

@@ -14,8 +14,9 @@ leading member axis, the twelve monthly sub-steps of a year and the
 time-varying-ECS LAMCALC go through two hand-written CUDA kernels
 (:mod:`rscm_tpu_torch.ops.udeb_month`, :mod:`rscm_tpu_torch.ops.lamcalc_kernel`)
 or their plain PyTorch versions, and the cumulative-temperature history is a
-fixed ring buffer.  The TPU package's host path (``_solve_host``) is not
-ported yet.
+fixed ring buffer.  The step-by-step executor runs the same batched solve
+at one member (:meth:`ClimateUDEB._solve_step`), where the TPU package runs
+a separate numpy host path (``_solve_host``).
 """
 
 from __future__ import annotations
@@ -28,7 +29,9 @@ import torch
 
 from rscm_tpu_torch.components._builder import make_builder
 from rscm_tpu_torch.core import xmath as xm
-from rscm_tpu_torch.core.component import Component, Input, Output, Parameter, State
+from rscm_tpu_torch.core.component import (
+    Component, Input, Output, Parameter, SolveContext, State, state_to_host, state_to_tensors,
+)
 from rscm_tpu_torch.core.spatial import FourBoxRegion
 from rscm_tpu_torch.core.state import FourBoxSlice
 
@@ -332,15 +335,55 @@ class ClimateUDEB(Component):
         out.pop("th_cumsum_c", None)
         return out
 
+    def cumulative_temperature(self, values, dts):
+        """The cumulative temperature over the feedback period from the
+        newest-first host history: whole entries while they fit, the last
+        one weighted by the part of its step inside the period (the TPU
+        package's ``adjusted_ecs`` walk, ``udeb/mod.rs:302-350``)."""
+        cum_t = 0.0
+        years_remaining = self.feedback_cumt_period
+        for value, dt in zip(np.asarray(values, dtype=np.float64),
+                             np.asarray(dts, dtype=np.float64)):
+            if years_remaining <= 0.0:
+                break
+            if dt <= 0.0:
+                continue
+            if dt <= years_remaining:
+                cum_t += value
+                years_remaining -= dt
+            else:
+                cum_t += value * (years_remaining / dt)
+                years_remaining = 0.0
+        return cum_t
+
     # -- the batched yearly solve (the TPU package's ``_solve_traced``) --------
 
     def solve_ctx(self, ctx, inputs, internal_state):
         if not getattr(ctx, "scan_mode", False):
-            raise NotImplementedError(
-                "ClimateUDEB runs inside the model program's year loop "
-                "(Model.run / EnsembleRunner.run); the host solve is not ported"
-            )
+            return self._solve_step(ctx, inputs, internal_state)
         return self._solve_batched(ctx, inputs, internal_state)
+
+    def _solve_step(self, ctx, inputs, internal_state):
+        """One year of the step-by-step executor: the batched solve at one
+        member, its loop state packed from the host layout (newest-first
+        cumulative-temperature history) before the year and unpacked after
+        it, so ``model.component_states`` keeps the host layout between
+        steps.  The cumulative temperature walks the recorded step widths,
+        as the TPU package's host path does, so a non-uniform axis steps
+        as it does there."""
+        like = inputs.surface_temperature.at_start(FourBoxRegion.NorthernOcean)
+        dt = float(ctx.t_next) - float(ctx.t_current)
+        idx = int(ctx.step_index)
+        state = self.pack_scan_state(
+            state_to_tensors(internal_state, like.dtype, like.device), idx, dt=dt
+        )
+        state["cum_t"] = self.cumulative_temperature(
+            internal_state["th_values"], internal_state["th_dts"]
+        )
+        year = SolveContext(ctx.t_current, ctx.t_next, idx, spans=np.asarray([dt]),
+                            scan_mode=True)
+        outputs, state = self._solve_batched(year, inputs, state)
+        return outputs, state_to_host(self.unpack_scan_state(state, idx + 1), internal_state)
 
     def _solve_batched(self, ctx, inputs, internal_state):
         """One year for every member: tensors carry a leading member axis.
@@ -411,9 +454,12 @@ class ClimateUDEB(Component):
         n_eff, frac, _ = self._cumt_window(dt_year)
         idx = int(ctx.step_index)
         th_values = C(state["th_values"])
-        cum_t = C(state["th_cumsum"])
-        if frac > 0:
-            cum_t = cum_t + C(frac) * th_values[..., (idx - 1 - n_eff) % capacity]
+        if "cum_t" in state:  # the step-by-step executor's walk (_solve_step)
+            cum_t = C(state["cum_t"])
+        else:
+            cum_t = C(state["th_cumsum"])
+            if frac > 0:
+                cum_t = cum_t + C(frac) * th_values[..., (idx - 1 - n_eff) % capacity]
 
         period = self.feedback_cumt_period
         cumt_2x = M(self.ecs * period)

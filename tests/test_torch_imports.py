@@ -1,7 +1,8 @@
 """The port stands alone: no JAX, nothing of ``rscm_tpu`` or ``rscm``.
 
 - Every module of ``rscm_tpu_torch`` imports in a fresh interpreter where
-  ``import jax`` fails, and the MAGICC graph builds and runs there.
+  ``import jax`` fails, and the MAGICC graph and the flagship graph build
+  and run there (the flagship through both executors).
 - No module of the port, and not ``chip_smoke.py``, imports ``jax``,
   ``rscm_tpu`` or ``rscm`` anywhere (an AST scan, so imports inside
   functions count too).
@@ -81,6 +82,50 @@ def test_magicc_graph_builds_and_runs_without_jax():
         "model.run(device='cpu')\n"
         "co2 = model.collection.get_data('Atmospheric Concentration|CO2').values()\n"
         "assert np.isfinite(np.asarray(co2)[1:]).all()\n"
+        "assert not any(m == 'rscm_tpu' or m.startswith(('rscm_tpu.', 'rscm.')) or m == 'rscm'"
+        " for m in sys.modules), 'the JAX package was imported'\n"
+        "print('ok')\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+FLAGSHIP_MODULES = [
+    "rscm_tpu_torch.core.ivp",
+    "rscm_tpu_torch.core.example_components",
+    "rscm_tpu_torch.core.python_component",
+    "rscm_tpu_torch.components.two_layer",
+    "rscm_tpu_torch.components.carbon_cycle",
+    "rscm_tpu_torch.components.co2_erf",
+    "rscm_tpu_torch.components.four_box_ocean_heat_uptake",
+    "rscm_tpu_torch.components.ocean_surface_partial_pressure",
+    "rscm_tpu_torch.magicc.chemistry.halocarbon",
+]
+
+
+def test_flagship_graph_builds_and_steps_without_jax():
+    """The flagship slice's modules import, and a short flagship graph runs
+    through the year loop and the step-by-step executor, in an interpreter
+    where ``import jax`` fails."""
+    assert set(FLAGSHIP_MODULES) <= set(port_modules())
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "import importlib\n"
+        f"for name in {FLAGSHIP_MODULES!r}:\n"
+        "    importlib.import_module(name)\n"
+        "import numpy as np\n"
+        "sys.path.insert(0, 'tests')\n"
+        "from test_torch_support import build_flagship\n"
+        "years = np.arange(1750.0, 1760.0)\n"
+        "loop, stepped = build_flagship('rscm_tpu_torch', years), build_flagship('rscm_tpu_torch', years)\n"
+        "loop.run(device='cpu')\n"
+        "stepped.step(device='cpu')\n"
+        "stepped.run(compiled=False, device='cpu')\n"
+        "a, b = (m.collection.get_data('Surface Temperature').values() for m in (loop, stepped))\n"
+        "assert np.isfinite(a).all() and np.array_equal(a, b)\n"
         "assert not any(m == 'rscm_tpu' or m.startswith(('rscm_tpu.', 'rscm.')) or m == 'rscm'"
         " for m in sys.modules), 'the JAX package was imported'\n"
         "print('ok')\n"

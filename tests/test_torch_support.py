@@ -120,3 +120,82 @@ def assert_phased(actual, expected, *, skip=5, shock_end=25, converge_start=55,
         if a < b and np.max(np.abs(rel[a:b])) > rtol
     ]
     assert not failures, f"{name}: " + "; ".join(failures)
+
+
+#: the flagship graph's variables (``bench.py:123-180``)
+FLAGSHIP_VARIABLES = [
+    ("Emissions|CO2|Anthropogenic", "GtC / yr"),
+    ("Surface Temperature", "K"),
+    ("Deep Ocean Temperature", "K"),
+    ("Atmospheric Concentration|CO2", "ppm"),
+    ("Cumulative Emissions|CO2", "Gt C"),
+    ("Cumulative Land Uptake", "Gt C"),
+    ("Effective Radiative Forcing|CO2", "W/m^2"),
+]
+FLAGSHIP_OUTPUTS = [name for name, _ in FLAGSHIP_VARIABLES[1:]] + ["Effective Radiative Forcing"]
+
+
+def flagship_emissions(n_years):
+    """bench.py's emissions ramp: slow growth, peak, decline (GtC / yr)."""
+    return np.concatenate(
+        [
+            np.linspace(0.0, 2.0, 100),
+            np.linspace(2.0, 12.0, 165),
+            np.linspace(12.0, 4.0, 86),
+            np.full(max(0, n_years - 351), 4.0),
+        ]
+    )[:n_years]
+
+
+def build_flagship(pkg, years):
+    """The two-layer + carbon-cycle flagship graph of ``bench.py:123-180``
+    (CarbonCycle, CO2ERF and TwoLayer with the ``Effective Radiative
+    Forcing`` Sum aggregate, driven by bench.py's emissions ramp) on
+    ``years``, built with package ``pkg``."""
+    core = importlib.import_module(f"{pkg}.core")
+    components = importlib.import_module(f"{pkg}.components")
+    years = np.asarray(years, dtype=np.float64)
+    schema = core.VariableSchema()
+    for name, unit in FLAGSHIP_VARIABLES:
+        schema.add_variable(name, unit)
+    schema.add_aggregate(
+        "Effective Radiative Forcing", "W/m^2", "Sum", ["Effective Radiative Forcing|CO2"]
+    )
+    return (
+        core.ModelBuilder()
+        .with_time_axis(core.TimeAxis.from_values(years))
+        .with_schema(schema)
+        .with_component(components.CarbonCycle(tau=30.0, conc_pi=278.0, alpha_temperature=0.03))
+        .with_component(components.CO2ERF(erf_2xco2=3.93, conc_pi=278.0))
+        .with_component(
+            components.TwoLayer(
+                lambda0=1.1, a=0.0, efficacy=1.3, eta=0.8,
+                heat_capacity_surface=8.0, heat_capacity_deep=110.0,
+            )
+        )
+        .with_exogenous_variable(
+            "Emissions|CO2|Anthropogenic",
+            core.Timeseries.from_values(flagship_emissions(len(years)), years),
+        )
+        .with_initial_values(
+            {
+                "Surface Temperature": 0.0,
+                "Deep Ocean Temperature": 0.0,
+                "Atmospheric Concentration|CO2": 278.0,
+                "Cumulative Emissions|CO2": 0.0,
+                "Cumulative Land Uptake": 0.0,
+            }
+        )
+        .build()
+    )
+
+
+def flagship_sweep(n, seed=42):
+    """bench.py's four-parameter sweep (``bench.py:189-197``)."""
+    rng = np.random.default_rng(seed)
+    return {
+        "TwoLayer.lambda0": rng.uniform(0.8, 1.8, n),
+        "TwoLayer.eta": rng.uniform(0.5, 1.2, n),
+        "CarbonCycle.tau": rng.uniform(15.0, 60.0, n),
+        "CO2ERF.erf_2xco2": rng.uniform(3.0, 4.5, n),
+    }
