@@ -29,15 +29,16 @@ Phases, each printed with its elapsed time:
               ``udeb_year`` count must be 250 and whose first 16 members must
               agree with the plain engine;
 5. timing  -- the main path's wall time and member-years/s, a torch.profiler
-              breakdown of one main-path run (device busy time, idle share), and
-              per kernel its device time per launch (profiler), the time per
+              breakdown of one main-path run (device activity: busy time,
+              idle share), per kernel its device time per launch (profiler), the time per
               back-to-back call (CUDA events), the plain version's time and the
               least time the card could take: the larger of the bytes over
               3.35 TB/s and the operations over the issue rate without
               contraction (17e12 FP64 / 33.5e12 FP32 additions or
               multiplications a second: the kernels are built with
               ``-fmad=false``), a division counted at the FMA-pipe
-              instructions it takes;
+              instructions it takes; and ``lamcalc``'s device time on a batch
+              where every 64th member takes the fallback;
 6. magicc  -- the ten-component emissions-driven MAGICC graph
               (``build_magicc_model``, 1850-2100, ``history_dtype="bfloat16"``,
               which resolves to the exp-sum ocean-carbon engine) at 100,000
@@ -48,9 +49,32 @@ Phases, each printed with its elapsed time:
               engines must agree within 1e-10; a ring-engine run (10,000
               members, 1850-1950) must agree with its exp-sum twin within the
               CPU test's bounds; it prints the warm run's wall and
-              member-years/s, device busy time and idle share, the top device
-              operations with both kernels' ms a launch, the PyTorch calls and
-              device operations a year, and peak device memory.
+              member-years/s, the PyTorch calls a year and peak device memory,
+              and over the first 101 years at the same batch the device busy
+              time and idle share, the top device operations with both
+              kernels' ms a launch and the device operations a year;
+7. flagship, host -- the flagship graph and the step-by-step executor;
+8. calibrate -- the MAGICC synthetic-truth calibration (``magicc_calibration``,
+              1850-2100, eight parameters, float64, bfloat16 flux history)
+              through the port's entry points, with both launch counts read
+              around each step: the log posterior of 1,024 prior walkers as
+              one batched run (250 launches each; 16 walkers against the
+              plain engines within rtol 1e-10); the MAP objective's
+              reverse-mode gradient at the truth (250 forward launches each;
+              walls, peak memory) and, at the 1850-1900 cut, its checks:
+              against the plain engines within rtol 1e-9, forward mode along
+              a seeded direction at the JAX package's bfloat16 bar, and, with
+              the flux history in float64, central differences of 16
+              perturbed walkers in one batched run within 1e-3 of its
+              largest component; one Adam step from the prior midpoint; the
+              device ensemble sampler, 1,024 walkers, two iterations under
+              the stretch and the DE move, with a checkpoint round trip;
+              NUTS, 64 chains, tree depth 2, one warmup iteration and one
+              transition at the cut; each kernel's backward (the plain
+              version recomputed and differentiated) timed alone.
+
+``python3 chip_smoke.py PHASE ...`` runs the device and build phases and the
+named later phases only (``kernels`` and ``timing`` go with ``main``).
 
 Any failed check raises and the script exits non-zero.  The last three lines
 are the per-kernel JSON record, the ``nvidia-smi`` name/power line and
@@ -58,6 +82,7 @@ are the per-kernel JSON record, the ``nvidia-smi`` name/power line and
 """
 
 import csv
+import dataclasses
 import json
 import os
 import shutil
@@ -87,7 +112,8 @@ LAYER_CHECKS = (2, 3, 17, 50, 100)
 SECOND = {"members": 10_000, "n_layers": 30, "checked": 16}
 #: the MAGICC path: members, members re-run through the plain engines, and
 #: the ring-engine check's members and last year
-MAGICC = {"members": 100_000, "checked": 64, "ring_members": 10_000, "ring_last_year": 1950.0}
+MAGICC = {"members": 100_000, "checked": 64, "ring_members": 10_000, "ring_last_year": 1950.0,
+          "profile_years": 101}
 MAGICC_OUT = ["Surface Temperature", "Atmospheric Concentration|CO2"]
 #: ring engine against its exp-sum twin, max |ring - expsum| / max |expsum|
 #: per variable (tests/test_torch_magicc_graph.py::RING_TWIN)
@@ -99,6 +125,16 @@ FLAGSHIP = {"members": 100_000, "years": 551, "checked": 64, "seed": 42, "step_y
 FLAGSHIP_OUT = ["Surface Temperature"]
 #: ClimateUDEB through step(): the years it steps
 HOST_UDEB_STEPS = 10
+#: the calibration path (bench.py:666-760, magicc_calibration at 1850-2100,
+#: eight parameters): walkers, walkers re-run through the plain engines, the
+#: finite-difference step (of each prior's span), the axis of the
+#: gradient's checks and of NUTS (1850 to this year), Adam's steps, the
+#: ensemble sampler's iterations, NUTS's chains, tree depth and initial step
+#: size (the default 0.1 diverges at once on this posterior from around the
+#: truth: 63 of 64 chains on the H100)
+CALIB = {"walkers": 1024, "checked": 16, "fd_rel_step": 1e-6, "cut_last_year": 1900.0,
+         "adam_steps": 1, "ensemble_iterations": 2, "nuts_chains": 64, "nuts_depth": 2,
+         "nuts_step_size": 0.01}
 DEVICE = "cuda"
 #: kernel vs plain version, |kernel - plain| <= atol + rtol * |plain|.  Both do
 #: the same operations in the same order and the kernels are built with
@@ -808,12 +844,28 @@ def phase_magicc(smi):
     wall = time.perf_counter() - t
     log(f"  MAGICC path: warm wall {wall:.3f} s, {b * n_steps / wall:.4e} member-years/s "
         f"on {smi}")
-    profile_main(runner, params, wall, smi, out_vars=MAGICC_OUT, what="MAGICC",
-                 n_steps=n_steps, host_ops=False)
     small = runner.batched_params({n: v[:k] for n, v in sweep.items()})
     calls = count_torch_calls(lambda: runner.run(small, out_vars=MAGICC_OUT))
     log(f"  MAGICC path: {calls} PyTorch operator calls a run, {calls / n_steps:.1f} a year "
         f"(at {k} members; the count does not depend on the batch)")
+    del runner, params
+
+    # the profile over the first years at the same batch: tracing the
+    # ~300,000 device operations of the whole run takes a minute
+    n_short = MAGICC["profile_years"]
+    short = EnsembleRunner(build_magicc_model(years=np.arange(1850.0, 1850.0 + n_short),
+                                              ocean_params=ocean_params))
+    short_params = short.batched_params(sweep)
+    short.run(short_params, out_vars=MAGICC_OUT)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    short.run(short_params, out_vars=MAGICC_OUT)
+    torch.cuda.synchronize()
+    short_wall = time.perf_counter() - t
+    log(f"  MAGICC path, first {n_short} years: warm wall {short_wall:.3f} s, "
+        f"{b * (n_short - 1) / short_wall:.4e} member-years/s on {smi}")
+    profile_main(short, short_params, short_wall, smi, out_vars=MAGICC_OUT,
+                 what=f"{n_short}-year MAGICC", n_steps=n_short - 1, host_ops=False)
     return launches
 
 
@@ -1034,7 +1086,7 @@ def phase_timing(smi, runner, params, launches, n_steps, errs, div_instr):
     log(f"  main path: wall {wall:.3f} s, CUDA-event span {span:.3f} s, "
         f"{N_MEMBERS * n_steps / wall:.4e} member-years/s on {smi}")
 
-    profile_main(runner, params, wall, smi)
+    profile_main(runner, params, wall, smi, host_ops=False)
 
     records = []
     b, dtype, dname = N_MEMBERS, torch.float64, "float64"
@@ -1060,13 +1112,26 @@ def phase_timing(smi, runner, params, launches, n_steps, errs, div_instr):
     plain_ms = cuda_ms(lambda: lamcalc_plain(lst, packed), 2)
     _, iters = lamcalc_plain_with_iterations(lst, packed)
     small_st, small_packed = lamcalc_inputs(256, dtype, seed=1, fallback_every=0)
-    per_member_fixed = [c / 256 for c in count_flops(lamcalc_plain, small_st, small_packed)]
-    # the kernel stops each member when it converges: count those iterations
-    flops = tuple(c * float(iters.double().sum()) / 39.0 for c in per_member_fixed)
+    # the plain loop runs every member until the slowest has converged; the
+    # kernel stops each member when it converges: count those iterations
+    small_steps = int(lamcalc_plain_with_iterations(small_st, small_packed)[1].max())
+    per_iteration = [c / (256 * small_steps)
+                     for c in count_flops(lamcalc_plain, small_st, small_packed)]
+    flops = tuple(c * float(iters.double().sum()) for c in per_iteration)
     nbytes = packed.element_size() * (packed.numel() + 3 * b)
     records.append(("lamcalc", "rscm_tpu_torch/csrc/lamcalc.cu",
                     "rscm_tpu/ops/lamcalc_kernel.py:252", ms, call_ms, plain_ms, flops, nbytes,
                     dname))
+
+    # a batch where every 64th member never converges: a warp runs as long
+    # as its slowest member (39 iterations)
+    fst, fpacked = lamcalc_inputs(b, dtype, seed=2, fallback_every=64)
+    fb_ms = kernel_device_ms(lambda: lamcalc(fst, fpacked), "lamcalc_kernel", 20)
+    _, fb_iters = lamcalc_plain_with_iterations(fst, fpacked)
+    log(f"  lamcalc with every 64th member on the fallback ({int((fb_iters == 39).sum())} "
+        f"members, {float(fb_iters.double().mean()):.2f} iterations a member): {fb_ms:.4f} "
+        f"ms/launch on the device (profiler) at B={b} {dname} on {smi}; all converging: "
+        f"{ms:.4f} ms")
 
     # udeb_year in float32 at the same shape, for the record
     st32, scal32, ocean32, init32, vec32 = udeb_inputs(b, torch.float32, seed=1)
@@ -1100,32 +1165,350 @@ def phase_timing(smi, runner, params, launches, n_steps, errs, div_instr):
     return kernels
 
 
-def main():
+def plain_backward_ms(fn, inputs, smi, what, reps=2):
+    """One backward of a kernel's ``torch.autograd.Function`` (the plain
+    version recomputed under autograd and differentiated), timed alone:
+    ``(device ms, wall ms)`` a call, from torch.profiler (every device
+    operation of the calls, over the calls) and from the host clock."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    xs = [x.detach().clone().requires_grad_(True) for x in inputs]
+    outs = fn(*xs)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    cot = [torch.ones_like(o) for o in outs]
+
+    def backward():
+        return torch.autograd.grad(outs, xs, cot, retain_graph=True)
+
+    backward()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(reps):
+        backward()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t) / reps * 1e3
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            backward()
+        torch.cuda.synchronize()
+    device = sum(e.self_device_time_total for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3 / reps
+    log(f"  {what} backward: {device:.3f} ms of device time and {wall:.3f} ms of wall a call "
+        f"on {smi}")
+    return device, wall
+
+
+def phase_calibrate(smi):
+    """The MAGICC calibration at full width through the port's entry points."""
+    import numpy as np
+    import torch
+    import torch.autograd.forward_ad as fwAD
+
+    from rscm_tpu_torch.calibrate import (
+        AdamOptimizer, Chain, CompiledModelRunner, DEMove, EnsembleSampler, EstimateKind,
+        NUTSSampler, PointEstimator, SamplerState, StretchMove, WalkerInit,
+    )
+    from rscm_tpu_torch.calibrate.gradients import value_and_grad
+    from rscm_tpu_torch.magicc.calibration import MAGICC_PARAM_SPECS, magicc_calibration
+    from rscm_tpu_torch.magicc.coupled import build_magicc_model
+    from rscm_tpu_torch.ops import build
+    from rscm_tpu_torch.ops.lamcalc_kernel import LamcalcFunction, lamcalc
+    from rscm_tpu_torch.ops.udeb_month import UdebYearFunction, udeb_year
+
+    def reset():
+        udeb_year.launches = 0
+        lamcalc.launches = 0
+
+    def expect(what, n):
+        got = {"udeb_year": udeb_year.launches, "lamcalc": lamcalc.launches}
+        log(f"  {what}: launches {got}")
+        if got != {"udeb_year": n, "lamcalc": n}:
+            raise AssertionError(f"{what}: launches {got}, expected {n} each")
+
+    def synced():
+        torch.cuda.synchronize()
+        return time.perf_counter()
+
+    t = synced()
+    calib = magicc_calibration()  # 1850-2100, eight parameters, float64, on the card
+    n_steps = len(calib.runner.model.time_axis) - 1
+    d = len(calib.param_names)
+    log(f"  calibration problem: {d} parameters, {n_steps + 1} years, "
+        f"{calib.target.total_observations()} observations; built (with its truth run) in "
+        f"{synced() - t:.2f} s")
+    def plain_runner(c):
+        """``c`` with its runner through the plain versions of both kernels."""
+        years = np.asarray(c.runner.model.time_axis.values())
+        return dataclasses.replace(c, runner=CompiledModelRunner(
+            build_magicc_model(years=years, ocean_params={"history_dtype": "bfloat16"},
+                               udeb_params={"month_engine": "torch"}),
+            param_map={n: MAGICC_PARAM_SPECS[n][0] for n in c.param_names},
+            output_variables=c.runner.output_variables))
+
+    plain = plain_runner(calib)
+
+    def objective(c, target):
+        return PointEstimator(c.params, c.runner, c.likelihood, target)._traced_objective(
+            EstimateKind.MAP)
+
+    def log_prob(c, target):
+        return EnsembleSampler(c.params, c.runner, c.likelihood, target)._build_device_log_prob()
+
+    # 1. the log posterior of 1024 walkers as one batched run
+    b = CALIB["walkers"]
+    walkers = calib.runner.as_theta(calib.params.sample_random(b, np.random.default_rng(11)))
+    lp_fn = log_prob(calib, calib.target)
+    with torch.no_grad():
+        reset()
+        t = synced()
+        lp = lp_fn(walkers)
+        wall = synced() - t
+        expect(f"log posterior of {b} walkers", n_steps)
+        finite = torch.isfinite(lp)
+        n_finite = int(finite.sum())
+        log(f"  log posterior of {b} prior walkers: wall {wall:.3f} s, {b / wall:.1f} model "
+            f"evaluations a second, {n_finite} finite (a failed run is -inf), median "
+            f"{float(lp.median()):.4e} on {smi}")
+        if bool(torch.isnan(lp).any()) or n_finite < 0.99 * b or bool((lp == np.inf).any()):
+            raise AssertionError(f"log posterior: {b - n_finite} walkers not finite")
+        # the first walkers with a finite posterior, through the plain engines
+        k = CALIB["checked"]
+        idx = torch.nonzero(finite)[:k, 0]
+        check_close(f"log posterior of {k} walkers, month_engine='torch' vs the kernels",
+                    lp[idx], log_prob(plain, calib.target)(walkers[idx]), 1e-10, 0.0)
+        for i in torch.nonzero(~finite)[:, 0].tolist():
+            log(f"  walker {i} (-inf): {dict(zip(calib.param_names, walkers[i].tolist()))}")
+
+    # 2. the MAP objective's gradient at the truth, reverse mode, through the
+    # kernels on the production problem
+    theta = calib.runner.as_theta(calib.theta_true[None])
+    obj = objective(calib, calib.target)
+    torch.cuda.reset_peak_memory_stats()
+    reset()
+    with torch.enable_grad():
+        x = theta.clone().requires_grad_(True)
+        t = synced()
+        value = obj(x)
+        t_fwd = synced() - t
+        (grad,) = torch.autograd.grad(value.sum(), x)
+        t_bwd = synced() - t - t_fwd
+    peak = torch.cuda.max_memory_allocated()
+    expect("gradient at the truth (forward launches)", n_steps)
+    grad = grad[0]
+    log(f"  gradient at the truth, reverse mode: forward with the tape {t_fwd:.3f} s, "
+        f"backward {t_bwd:.3f} s, peak device memory {peak / 2**30:.3f} GiB on {smi}; "
+        f"objective {float(value[0].detach()):.10e}, gradient {grad.tolist()}")
+    if not bool(torch.isfinite(grad).all()) or not bool((grad != 0).all()):
+        raise AssertionError(f"gradient {grad.tolist()}")
+
+    # the gradient's checks at the 1850-1900 cut (each 251-year gradient is
+    # ~150 s of host-bound backward on the card): against the plain engines,
+    # forward mode along a seeded unit direction, and central differences
+    cut_years = np.arange(1850.0, CALIB["cut_last_year"] + 1.0)
+    cut = magicc_calibration(years=cut_years)
+    cut_steps = len(cut_years) - 1
+    cut_obj = objective(cut, cut.target)
+    cut_theta = cut.runner.as_theta(cut.theta_true[None])
+    reset()
+    t = synced()
+    _, cut_grad = value_and_grad(cut_obj, cut_theta, "rev")
+    log(f"  gradient at the truth, {cut_steps + 1} years: {synced() - t:.3f} s")
+    expect("gradient at the cut", cut_steps)
+    t = synced()
+    _, plain_grad = value_and_grad(objective(plain_runner(cut), cut.target), cut_theta, "rev")
+    log(f"  the same gradient through the plain engines: {synced() - t:.3f} s")
+    check_close(f"gradient at {cut_steps + 1} years, month_engine='torch' vs the kernels",
+                cut_grad[0], plain_grad[0], 1e-9, 0.0)
+
+    v = np.random.default_rng(17).normal(size=d)
+    v = cut.runner.as_theta(v / np.linalg.norm(v))
+    reset()
+    t = synced()
+    with torch.no_grad(), fwAD.dual_level():
+        jvp = fwAD.unpack_dual(cut_obj(fwAD.make_dual(cut_theta, v[None]))).tangent[0]
+    t_jvp = synced() - t
+    expect("forward-mode run at the cut", cut_steps)
+    gv = (cut_grad[0] * v).sum()
+    scale = float(cut_grad.abs().max())
+    log(f"  forward mode along a seeded direction, {cut_steps + 1} years: jvp {float(jvp):.10e}, "
+        f"grad . v {float(gv):.10e}, {t_jvp:.3f} s on {smi}")
+    if not abs(float(jvp - gv)) <= 2e-2 * abs(float(gv)) + 1e-6 * scale:
+        raise AssertionError("forward and reverse mode disagree beyond the bfloat16 bar")
+
+    # central differences with the flux history in float64: through a
+    # bfloat16 history the forward is flat between roundings at a step of
+    # 1e-6 of a prior span (on the CPU at 1850-1890 such differences miss the
+    # gradient by 0.33 of its largest component, by 1.1e-8 in float64)
+    fine = magicc_calibration(years=cut_years,
+                              model_kwargs={"ocean_params": {"history_dtype": "float32"}})
+    fine_obj = objective(fine, fine.target)
+    _, fine_grad = value_and_grad(fine_obj, cut_theta, "rev")
+    fine_grad = fine_grad[0]
+    lower, upper = map(np.asarray, fine.params.bounds())
+    h = CALIB["fd_rel_step"] * (upper - lower)
+    steps = np.diag(h)
+    points = fine.runner.as_theta(np.concatenate([fine.theta_true + steps,
+                                                  fine.theta_true - steps]))
+    with torch.no_grad():
+        vals = fine_obj(points)
+    fd = (vals[:d] - vals[d:]) / (2.0 * torch.as_tensor(h, dtype=vals.dtype, device=vals.device))
+    fd_err = float((fd - fine_grad).abs().max() / fine_grad.abs().max())
+    log(f"  central differences, {cut_steps + 1} years, flux history in float64 ({2 * d} "
+        f"walkers in one batched run, step {CALIB['fd_rel_step']:g} of each prior span): "
+        f"max |fd - grad| / max |grad| {fd_err:.3e} (bound 1e-3)")
+    if not fd_err < 1e-3:
+        raise AssertionError(f"gradient disagrees with central differences ({fd_err:.3e})")
+    del fine, fine_obj
+
+    # each kernel's backward, alone, at the gradient's batch of one walker
+    st, *udeb_args = udeb_inputs(1, torch.float64, seed=5)
+    udeb_bwd = plain_backward_ms(lambda *a: UdebYearFunction.apply(st, *a), udeb_args, smi,
+                                 "udeb_year (B=1, n=50)")
+    lst, packed = lamcalc_inputs(1, torch.float64, seed=5, fallback_every=0)
+    lam_bwd = plain_backward_ms(lambda p: LamcalcFunction.apply(lst, p), [packed], smi,
+                                "lamcalc (B=1)")
+    log(f"  the kernels' backwards in one gradient: {n_steps} x ({udeb_bwd[1]:.3f} + "
+        f"{lam_bwd[1]:.3f}) ms = {n_steps * (udeb_bwd[1] + lam_bwd[1]) / 1e3:.3f} s of wall, "
+        f"{n_steps * udeb_bwd[1] / 1e3 / t_bwd:.1%} of the backward's {t_bwd:.3f} s in "
+        f"udeb_year's (device time {n_steps * udeb_bwd[0] / 1e3:.3f} s)")
+
+    # 3. Adam from the prior midpoint (reverse-mode gradients), on the
+    # production problem (bfloat16 flux history)
+    est = PointEstimator(calib.params, calib.runner, calib.likelihood, calib.target)
+    mid = list(0.5 * (lower + upper))
+    with torch.no_grad():
+        start = float(obj(calib.runner.as_theta(np.asarray(mid)[None]))[0])
+    n_adam = CALIB["adam_steps"]
+    reset()
+    t = synced()
+    fit = est.optimize(AdamOptimizer(learning_rate=0.03, n_steps=n_adam, fwd_threshold=0),
+                       x0=mid)
+    wall = synced() - t
+    expect(f"Adam, {n_adam} step(s)", n_steps * (n_adam + 1) + n_steps)
+    best = np.asarray(fit.best_params)
+    with torch.no_grad():
+        end = float(obj(calib.runner.as_theta(best[None]))[0])
+    log(f"  Adam, {n_adam} step(s) from the prior midpoint: objective {start:.6e} -> {end:.6e}, "
+        f"{wall:.3f} s ({wall / n_adam:.3f} s a step with the final objective and the "
+        f"host evaluation) on {smi}")
+    if not end <= start or not np.all((lower < best) & (best < upper)):
+        raise AssertionError(f"Adam rose ({start} -> {end}) or left the support: {best}")
+
+    # 4. the device ensemble sampler, both moves, with a checkpoint round trip
+    n_it = CALIB["ensemble_iterations"]
+    records = {}
+    for label, move in (("stretch", StretchMove()), ("DE", DEMove())):
+        sampler = EnsembleSampler(calib.params, calib.runner, calib.likelihood, calib.target,
+                                  move=move)
+        path = str(build.BUILD_DIR / f"calibrate_{label}")
+        build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        reset()
+        t = synced()
+        chain = sampler.run_with_checkpoint(
+            n_iterations=n_it, init=WalkerInit.from_prior(), thin=1, checkpoint_every=n_it,
+            checkpoint_path=path, n_walkers=b, seed=21, engine="device")
+        wall = synced() - t
+        expect(f"ensemble sampler ({label})", n_steps * (1 + 2 * n_it))
+        state = SamplerState.load_checkpoint(path + ".state")
+        saved = Chain.load(path + ".chain")
+        samples = chain.flat_samples()
+        acc = state.mean_acceptance_rate()
+        evals = b * (1 + n_it)
+        log(f"  ensemble sampler, {label} move, {b} walkers x {n_it} iterations: wall "
+            f"{wall:.3f} s ({wall / (1 + n_it):.3f} s an iteration with the initial batch), "
+            f"{evals / wall:.1f} model evaluations a second, acceptance {acc:.4f} on {smi}")
+        if samples.shape != (n_it * b, d) or not np.all(np.isfinite(samples)):
+            raise AssertionError(f"{label} chain: shape {samples.shape}, or non-finite samples")
+        if not 0.0 <= acc <= 1.0 or state.iteration != n_it:
+            raise AssertionError(f"{label}: acceptance {acc}, iteration {state.iteration}")
+        if not (np.array_equal(saved.flat_samples(), samples)
+                and np.array_equal(state.positions, chain.samples[-1])):
+            raise AssertionError(f"{label}: the checkpoint did not round-trip")
+        records[label] = wall
+
+    # 5. NUTS at the 1850-1900 cut, reverse-mode gradients
+    nuts = NUTSSampler(cut.params, cut.runner, cut.likelihood, cut.target,
+                       max_tree_depth=CALIB["nuts_depth"], grad_mode="rev")
+    c = CALIB["nuts_chains"]
+    reset()
+    t = synced()
+    # chains start around the truth, as the JAX package's NUTS test of the
+    # MAGICC graph starts them (from prior draws the first trajectories of a
+    # posterior this peaked diverge at once)
+    init = cut.theta_true * (1.0 + 0.01 * np.random.default_rng(6).uniform(-1.0, 1.0, (c, d)))
+    chain = nuts.run(n_iterations=1, n_chains=c, warmup=1, seed=5, init_positions=init,
+                     step_size=CALIB["nuts_step_size"])
+    wall = synced() - t
+    diag = nuts.last_diagnostics
+    expect("NUTS", cut_steps * diag["n_gradient_evals"])
+    samples = chain.flat_samples()
+    log(f"  NUTS, {c} chains, depth {CALIB['nuts_depth']}, 1 warmup + 1 transition, "
+        f"{cut_steps + 1} years: wall {wall:.3f} s, {diag['n_gradient_evals']} batched "
+        f"value-and-gradient evaluations ({wall / diag['n_gradient_evals']:.3f} s each, "
+        f"{wall / (diag['n_gradient_evals'] * c) * 1e3:.1f} ms a chain), {diag['n_model_evals']} "
+        f"chain leapfrog steps in growing trees, {diag['n_divergences']} divergences, step "
+        f"sizes median {float(np.median(diag['step_sizes'])):.4f} on {smi}")
+    if samples.shape != (c, d) or not np.all(np.isfinite(samples)):
+        raise AssertionError(f"NUTS samples: shape {samples.shape}, or non-finite")
+    if not 0 < diag["n_model_evals"] <= c * diag["n_leapfrog_steps"]:
+        raise AssertionError(f"NUTS counted {diag['n_model_evals']} model evaluations in "
+                             f"{diag['n_leapfrog_steps']} leapfrog steps of {c} chains")
+    return {
+        "udeb_year": {"launches_per_gradient": n_steps, "backward_ms": udeb_bwd[0]},
+        "lamcalc": {"launches_per_gradient": n_steps, "backward_ms": lam_bwd[0]},
+    }
+
+
+PHASES = ("main", "second", "magicc", "flagship", "host", "calibrate")
+
+
+def main(selected):
+    unknown = set(selected) - set(PHASES)
+    if unknown:
+        raise SystemExit(f"unknown phase(s) {sorted(unknown)}; phases: {', '.join(PHASES)}")
+    run = set(selected or PHASES)
+    kernels = None
     with Phase("device"):
         smi = phase_device()
     with Phase("build"):
         div_instr = phase_build(smi)
-    with Phase("kernels"):
-        errs = phase_kernels()
-    with Phase("main"):
-        runner, params, launches, n_steps = phase_main()
-    with Phase("second"):
-        phase_second_path()
-    with Phase("timing"):
-        kernels = phase_timing(smi, runner, params, launches, n_steps, errs, div_instr)
-    del runner, params
-    with Phase("magicc"):
-        phase_magicc(smi)
-    with Phase("flagship"):
-        phase_flagship(smi)
-    with Phase("host"):
-        _, _, config = read_golden("10_full_default")
-        phase_host_executor(smi, {"ecs": config["core_climatesensitivity"],
-                                  "rf_2xco2": config["core_delq2xco2"]})
+    if "main" in run:
+        with Phase("kernels"):
+            errs = phase_kernels()
+        with Phase("main"):
+            runner, params, launches, n_steps = phase_main()
+    if "second" in run:
+        with Phase("second"):
+            phase_second_path()
+    if "main" in run:
+        with Phase("timing"):
+            kernels = phase_timing(smi, runner, params, launches, n_steps, errs, div_instr)
+        del runner, params
+    if "magicc" in run:
+        with Phase("magicc"):
+            phase_magicc(smi)
+    if "flagship" in run:
+        with Phase("flagship"):
+            phase_flagship(smi)
+    if "host" in run:
+        with Phase("host"):
+            _, _, config = read_golden("10_full_default")
+            phase_host_executor(smi, {"ecs": config["core_climatesensitivity"],
+                                      "rf_2xco2": config["core_delq2xco2"]})
+    if "calibrate" in run:
+        with Phase("calibrate"):
+            calib = phase_calibrate(smi)
+        if kernels is not None:
+            for record in kernels:
+                record.update(calib[record["name"]])
+        else:
+            log(f"  calibration records: {json.dumps(calib)}")
 
     import torch
 
-    print(json.dumps({"kernels": kernels}))
+    if kernels is not None:
+        print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
@@ -1136,7 +1519,7 @@ def main():
 
 if __name__ == "__main__":
     try:
-        main()
+        main(sys.argv[1:])
     except Exception as exc:  # report and fail: no phase failure ends in exit 0
         print(f"chip_smoke FAILED: {type(exc).__name__}: {exc}", file=sys.stderr, flush=True)
         raise

@@ -22,7 +22,13 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-__all__ = ["apply_static_params", "params_from_jax", "static_params_from_jax"]
+__all__ = [
+    "apply_static_params",
+    "params_from_jax",
+    "parameter_set_from_jax",
+    "static_params_from_jax",
+    "target_from_jax",
+]
 
 
 def params_from_jax(
@@ -136,3 +142,30 @@ def apply_static_params(model, statics: Dict[str, dict]) -> None:
         model.graph.nodes[node] = new
         model.component_states[node] = new.create_initial_state()
     model._state_version += 1
+
+
+def parameter_set_from_jax(params):
+    """The port's ``ParameterSet`` with the same priors, in the same order,
+    as a JAX package ``ParameterSet`` (read through each prior's
+    ``to_dict``: kind, parameters and bounds)."""
+    from rscm_tpu_torch.calibrate import Distribution, ParameterSet
+
+    return ParameterSet(
+        {name: Distribution.from_dict(dist.to_dict()) for name, dist in params.parameters.items()}
+    )
+
+
+def target_from_jax(target):
+    """The port's ``Target`` with the same variables, observation times,
+    values and uncertainties (and reference periods) as a JAX package
+    ``Target``."""
+    from rscm_tpu_torch.calibrate import Target
+
+    out = Target()
+    for name, vt in target.variables.items():
+        new = out.add_variable(name)
+        for obs in vt.observations:
+            new.add(float(obs.time), float(obs.value), float(obs.uncertainty))
+        if vt.reference_period is not None:
+            new.with_reference_period(*vt.reference_period)
+    return out

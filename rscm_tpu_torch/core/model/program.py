@@ -7,10 +7,13 @@ builder's static execution plan into one step function and lets
 axis.  PyTorch runs eagerly, so here the same plan runs as a Python loop
 over years, with the member axis written out:
 
-- every endogenous variable keeps its full ``(n_steps, B, n_regions)``
-  trajectory and each component's outputs are written at index **N+1**
-  (in place), so upstream outputs written earlier in a step are visible to
-  later components' ``at_end`` reads;
+- every endogenous variable keeps its trajectory as a list of ``(B,
+  n_regions)`` rows (:class:`~rscm_tpu_torch.core.state.Trajectory`) and
+  each component's outputs are written at index **N+1**, so upstream
+  outputs written earlier in a step are visible to later components'
+  ``at_end`` reads.  A write replaces a row, and nothing is modified in
+  place, so the loop carries gradients (reverse and forward mode) from
+  parameters given as tensors that require them;
 - exogenous data is ``(n_steps, n_regions)``, shared by every member;
 - parameters are a ``{node: {name: value}}`` dict whose values are host
   floats (shared) or ``(B,)`` tensors (swept per member);
@@ -29,7 +32,7 @@ import numpy as np
 import torch
 
 from ..component import SolveContext, state_to_host, state_to_tensors
-from ..state import StateValue, make_window
+from ..state import StateValue, Trajectory, make_window
 from ..timeseries import VariableType
 from .graph import NullComponent
 from .input_state import InputState
@@ -64,6 +67,7 @@ class ModelProgram:
         # static step widths for per-component sub-stepping
         self.spans = np.diff(self.time_bounds)
 
+        self._matrices = {}  # id(plan matrix) -> (the matrix, its device copy)
         self.endo_names = []
         self.exo_names = []
         for item in model.collection:
@@ -76,6 +80,16 @@ class ModelProgram:
         if isinstance(x, torch.Tensor):
             return x.to(dtype=self.dtype, device=self.device)
         return torch.as_tensor(np.asarray(x), dtype=self.dtype, device=self.device)
+
+    def _matrix(self, matrix):
+        """A plan's constant grid-transform matrix on the run's device,
+        copied there once (not once a year)."""
+        if matrix is None:
+            return None
+        key = id(matrix)
+        if key not in self._matrices:
+            self._matrices[key] = (matrix, self._tensor(np.array(matrix)))
+        return self._matrices[key][1]
 
     # -- the loop ------------------------------------------------------------
 
@@ -105,7 +119,7 @@ class ModelProgram:
                         strategy=item.data.interpolation_strategy,
                         time_values=self.time_values,
                         grid=model._grid_obj(spec.window_grid),
-                        aggregation=spec.aggregation,
+                        aggregation=self._matrix(spec.aggregation),
                     )
 
                 builders[spec.var_name] = make
@@ -125,8 +139,9 @@ class ModelProgram:
                 row = self._tensor(StateValue.wrap(value).as_array())
                 spec = write_specs.get(key)
                 if spec is not None and spec.matrix is not None:
-                    row = row @ self._tensor(spec.matrix)
-                endo[key][idx + 1] = row
+                    row = row @ self._matrix(spec.matrix)
+                # member-independent outputs broadcast to the member axis
+                endo[key][idx + 1] = row.expand_as(endo[key].rows[idx + 1])
 
     def _pack_internals(self, internals, start_idx: int):
         out = dict(internals)
@@ -156,13 +171,16 @@ class ModelProgram:
         """Run the loop from ``start_idx`` to the end of the axis.
 
         ``endo`` maps each endogenous name to its ``(n_steps, B, n_regions)``
-        trajectory and is written in place; ``exo`` maps each exogenous name
-        to ``(n_steps, n_regions)``; ``params`` is ``{node: {name: float |
-        (B,) tensor}}``; ``internals`` the host-layout internal states.
-        Returns ``(endo, internals)`` after the final step.
+        initial trajectory (rows up to ``start_idx`` are read, the rest are
+        replaced); ``exo`` maps each exogenous name to ``(n_steps,
+        n_regions)``; ``params`` is ``{node: {name: float | (B,) tensor}}``;
+        ``internals`` the host-layout internal states.  Returns ``(endo,
+        internals)`` after the final step, ``endo`` as new ``(n_steps, B,
+        n_regions)`` tensors.
         """
         if self.n_steps - 1 - start_idx <= 0:
             return endo, internals
+        endo = {name: Trajectory.from_tensor(values) for name, values in endo.items()}
         internals = self._pack_internals(internals, start_idx)
         for idx in range(start_idx, self.n_steps - 1):
             ctx = SolveContext(
@@ -173,16 +191,20 @@ class ModelProgram:
                 scan_mode=True,
             )
             self._solve_all_nodes(endo, exo, internals, ctx, params)
+        # one variable at a time, each trajectory's rows dropped once stacked
+        endo = {name: endo.pop(name).stack() for name in list(endo)}
         return endo, self._unpack_internals(internals, self.n_steps - 1)
 
     # -- host data marshalling ------------------------------------------------
 
     def gather_endo(self, batch: int) -> Dict[str, torch.Tensor]:
-        """Endogenous trajectories broadcast to ``(n_steps, batch, g)``."""
+        """Endogenous trajectories broadcast to ``(n_steps, batch, g)``: views
+        of the shared ``(n_steps, g)`` data (the loop replaces rows and never
+        writes into them)."""
         out = {}
         for name in self.endo_names:
             values = self._tensor(self.model.collection.get_data(name)._values)
-            out[name] = values[:, None].expand(-1, batch, -1).clone()
+            out[name] = values[:, None].expand(-1, batch, -1)
         return out
 
     def gather_exo(self) -> Dict[str, torch.Tensor]:

@@ -23,12 +23,12 @@ Mirrors ``crates/rscm-core/src/state/``:
   on a device (the step-by-step executor's windows).
 
 **Dual-mode**: the same window classes work on host numpy arrays
-(float64 exactness, ``None`` returns at boundaries) and on torch tensors
-inside the batched year loop (boundary reads clamp — the loop never reads
-out-of-range indices during a normal run).  A tensor storage array is
-``(n_steps, members, n_regions)`` for a variable the model computes, or
-``(n_steps, n_regions)`` for shared exogenous data, so a row read yields
-``(members, n_regions)`` or ``(n_regions,)`` and a region read the
+(float64 exactness, ``None`` returns at boundaries) and on tensors inside
+the batched year loop (boundary reads clamp — the loop never reads
+out-of-range indices during a normal run).  In the loop a variable the
+model computes is a :class:`Trajectory` of ``(members, n_regions)`` rows,
+and shared exogenous data an ``(n_steps, n_regions)`` tensor, so a row read
+yields ``(members, n_regions)`` or ``(n_regions,)`` and a region read the
 per-member ``(members,)`` column (or a 0-d tensor, which broadcasts).
 """
 
@@ -54,13 +54,59 @@ __all__ = [
     "DeviceWindow",
     "host_window",
     "is_traced",
+    "Trajectory",
 ]
 
 
+class Trajectory:
+    """A variable's trajectory in the year loop: one ``(members, n_regions)``
+    tensor per step.
+
+    The loop replaces a row instead of writing into one ``(n_steps, members,
+    n_regions)`` tensor in place, so a row that autograd saved for the
+    backward is never modified, and a read touches one row instead of the
+    whole trajectory.  ``matrix`` (set by :meth:`aggregated`) is a read-side
+    grid aggregation applied to each row as it is read.
+    """
+
+    __slots__ = ("rows", "matrix")
+
+    def __init__(self, rows, matrix=None):
+        self.rows = rows
+        self.matrix = matrix
+
+    @classmethod
+    def from_tensor(cls, values) -> "Trajectory":
+        """The rows of an ``(n_steps, members, n_regions)`` tensor."""
+        return cls(list(values.unbind(0)))
+
+    def aggregated(self, matrix) -> "Trajectory":
+        """A view (for reading) whose rows are aggregated by ``matrix``."""
+        like = self.rows[0]
+        return Trajectory(
+            self.rows, torch.as_tensor(matrix, dtype=like.dtype, device=like.device)
+        )
+
+    def __len__(self):
+        return len(self.rows)
+
+    def __getitem__(self, index):
+        row = self.rows[index]
+        return row if self.matrix is None else row @ self.matrix
+
+    def __setitem__(self, index, row):
+        self.rows[index] = row
+
+    def stack(self):
+        """The whole trajectory as one ``(n_steps, members, n_regions)`` tensor."""
+        out = torch.stack(self.rows)
+        return out if self.matrix is None else out @ self.matrix
+
+
 def is_traced(x) -> bool:
-    """True when x is a tensor (a value of the batched program), as opposed
-    to a host float or numpy array."""
-    return isinstance(x, torch.Tensor)
+    """True when x is a tensor or a :class:`Trajectory` (a value of the
+    batched program), as opposed to a host float or numpy array."""
+    return isinstance(x, (torch.Tensor, Trajectory))
 
 
 def _region(row, region: int):
@@ -355,8 +401,8 @@ def _read_row(values, index):
 class _WindowBase:
     """Shared window mechanics over a (time, space) value array.
 
-    ``values`` is the full storage array of the variable (host numpy or
-    a tensor); ``current_index`` is the step index N;
+    ``values`` is the full storage array of the variable (host numpy, a
+    tensor or a :class:`Trajectory`); ``current_index`` is the step index N;
     ``factor`` the read-side unit conversion; ``source`` drives get();
     ``aggregation`` an optional (source_size -> my size) constant matrix
     implementing a read-side grid transform.
@@ -388,9 +434,13 @@ class _WindowBase:
     ):
         traced = is_traced(values)
         if aggregation is not None:
-            # Fold the read-side aggregation into the array view once (a
-            # small constant matmul over the region axis).
-            if traced:
+            # A trajectory aggregates the rows it is asked for; an array
+            # (exogenous data, the host executor's storage) folds the
+            # read-side aggregation into its view once (a small constant
+            # matmul over the region axis).
+            if isinstance(values, Trajectory):
+                values = values.aggregated(aggregation)
+            elif traced:
                 values = values @ torch.as_tensor(
                     aggregation, dtype=values.dtype, device=values.device
                 )
@@ -409,7 +459,11 @@ class _WindowBase:
     # -- internals ----------------------------------------------------------
 
     def _n(self) -> int:
-        return self.values.shape[0]
+        return len(self.values)
+
+    def _series(self):
+        """The whole (aggregated) storage as one array or tensor."""
+        return self.values.stack() if isinstance(self.values, Trajectory) else self.values
 
     def _row(self, index):
         row = _read_row(self.values, index)
@@ -441,9 +495,10 @@ class _WindowBase:
 
     def _interp_row(self, t):
         if self._traced:
+            values = self._series()
             cols = [
-                interpolate_traced(self.time_values, self.values[..., r], t, self.strategy)
-                for r in range(self.values.shape[-1])
+                interpolate_traced(self.time_values, values[..., r], t, self.strategy)
+                for r in range(values.shape[-1])
             ]
             row = torch.stack(cols, dim=-1)
         else:
@@ -494,9 +549,9 @@ class ScalarWindow(_WindowBase):
         """
         if self._traced:
             idx = int(self.current_index)
-            col = self.values[..., 0]
+            first = self.values[0][..., 0]
             rows = [
-                col[r] if r >= 0 else torch.full_like(col[0], float("nan"))
+                self.values[r][..., 0] if r >= 0 else torch.full_like(first, float("nan"))
                 for r in range(idx + 1 - n, idx + 1)
             ]
             out = torch.stack(rows, dim=-1)

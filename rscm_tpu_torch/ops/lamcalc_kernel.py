@@ -26,8 +26,9 @@ does only the iterations each member needs; a warp still runs as long as
 its slowest member.
 
 **The plain version** (:func:`lamcalc_plain`): the same iteration on
-``(B,)`` tensors with a fixed count of 39 steps — the twin of the JAX
-package's ``_ref_jnp``.  PyTorch's CUDA division by a host scalar
+``(B,)`` tensors, at most 39 steps, left once every member has converged
+(each member's iterate is frozen from its convergence on) — the twin of
+the JAX package's fixed-count ``_ref_jnp``.  PyTorch's CUDA division by a host scalar
 multiplies by its reciprocal; the kernel takes those reciprocals, taken in
 the working dtype, as arguments.
 """
@@ -35,10 +36,13 @@ the working dtype, as arguments.
 from __future__ import annotations
 
 import ctypes
+import functools
 from dataclasses import dataclass
 
 import numpy as np
 import torch
+
+from .plain_grad import plain_jvp, plain_vjp
 
 __all__ = [
     "lamcalc",
@@ -141,6 +145,12 @@ def lamcalc_plain_with_iterations(st: LamStatic, packed):
     iterations = torch.zeros_like(lam, dtype=torch.int32)
     best_lam_o = best_lam_l = best_eff = zeros
     for _ in range(MAX_ITERATIONS - 1):
+        # once every member has converged the remaining iterations change
+        # nothing (each member's iterate and result are frozen), so stop,
+        # as the kernel stops each member: the values, and the gradients
+        # through the iterates each member selected, are the same
+        if bool(found.all()):
+            break
         iterations = iterations + (~found).to(torch.int32)
         lam_l = lam + fratio * (lam - lamo_i) / rlo
         t = temps_from(lamo_i, lam_l)
@@ -192,7 +202,8 @@ def lamcalc_plain_with_iterations(st: LamStatic, packed):
 
 def lamcalc_plain(st: LamStatic, packed):
     """Plain PyTorch version of the kernel: ``(6, B)`` in, ``(3, B)`` out
-    (twin of the JAX package's ``_ref_jnp``, fixed-count loop)."""
+    (twin of the JAX package's ``_ref_jnp``, whose fixed-count loop it
+    leaves once every member has converged)."""
     return lamcalc_plain_with_iterations(st, packed)[0]
 
 
@@ -234,8 +245,47 @@ def lamcalc(st: LamStatic, packed):
         return lamcalc_plain(st, packed)
     if packed.device.type != "cuda":
         raise ValueError(f"lamcalc: no kernel for device {packed.device}")
-    if packed.requires_grad:
-        raise RuntimeError("lamcalc: the CUDA kernel has no backward; inputs must not require grad")
+    return LamcalcFunction.apply(st, packed)
+
+
+class LamcalcFunction(torch.autograd.Function):
+    """The kernel's forward with the plain version's derivatives.
+
+    The twin of the JAX package's ``custom_jvp`` around the Pallas kernel
+    (``_jvp`` differentiates ``_ref_jnp``, ``lamcalc_kernel.py:317-325``):
+    there is no backward kernel.  ``forward`` launches the CUDA kernel (the
+    plain version without a tape on CPU tensors, as the tests call it);
+    ``backward`` and ``jvp`` differentiate :func:`lamcalc_plain` at the
+    saved input.  Gradients flow through the iterate the plain version
+    selects; a member that takes the fallback constants gets zero.
+    """
+
+    @staticmethod
+    def forward(st, packed):
+        return _lamcalc_forward(st, packed)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.st = inputs[0]
+        ctx.save_for_backward(inputs[1])
+        ctx.save_for_forward(inputs[1])
+
+    @staticmethod
+    def backward(ctx, g_out):
+        (grad,) = plain_vjp(functools.partial(lamcalc_plain, ctx.st), ctx.saved_tensors,
+                             ctx.needs_input_grad[1:], (g_out,))
+        return None, grad
+
+    @staticmethod
+    def jvp(ctx, _st_t, packed_t):
+        return plain_jvp(functools.partial(lamcalc_plain, ctx.st), ctx.saved_tensors, (packed_t,))
+
+
+def _lamcalc_forward(st: LamStatic, packed):
+    """One launch of the kernel (the plain version on CPU tensors)."""
+    if packed.device.type == "cpu":
+        with torch.no_grad():
+            return lamcalc_plain(st, packed)
     if packed.dtype not in _SUFFIX:
         raise TypeError(f"lamcalc: the kernel takes float32 or float64, not {packed.dtype}")
     if not packed.is_contiguous():

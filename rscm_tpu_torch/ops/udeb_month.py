@@ -65,9 +65,12 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from .plain_grad import plain_jvp, plain_vjp
+
 __all__ = [
     "udeb_year",
     "udeb_year_plain",
+    "UdebYearFunction",
     "UdebStatic",
     "SCALAR_ROWS",
     "static_from_component",
@@ -469,17 +472,61 @@ def kernel_config(n: int, dtype, device=None) -> dict:
 def udeb_year(st: UdebStatic, scal, ocean, init_prof, vec):
     """One year of monthly sub-steps for every member.
 
-    CPU tensors take :func:`udeb_year_plain`, at any layer count.  CUDA
-    tensors launch the kernel (built on first use) at any layer count up
-    to :func:`max_kernel_layers`; anything the kernel cannot take raises.
+    CPU tensors take :func:`udeb_year_plain`, at any layer count, and
+    autograd goes through it.  CUDA tensors launch the kernel (built on
+    first use) at any layer count up to :func:`max_kernel_layers`, through
+    :class:`UdebYearFunction`, so gradients in both modes come from the
+    plain version; anything the kernel cannot take raises.
     """
     _check(st, scal, ocean, init_prof, vec)
     if ocean.device.type == "cpu":
         return udeb_year_plain(st, scal, ocean, init_prof, vec)
     if ocean.device.type != "cuda":
         raise ValueError(f"udeb_year: no kernel for device {ocean.device}")
-    if any(x.requires_grad for x in (scal, ocean, init_prof, vec)):
-        raise RuntimeError("udeb_year: the CUDA kernel has no backward; inputs must not require grad")
+    return UdebYearFunction.apply(st, scal, ocean, init_prof, vec)
+
+
+class UdebYearFunction(torch.autograd.Function):
+    """The kernel's forward with the plain version's derivatives.
+
+    The twin of the JAX package's ``custom_jvp`` around the Pallas kernel
+    (``_year_jvp`` differentiates ``_ref_single``, ``udeb_month.py:530-548``):
+    there is no backward kernel.  ``forward`` launches the CUDA kernel
+    (:func:`_udeb_year_forward`; on CPU tensors, as the tests call it, the
+    plain version without a tape); ``backward`` recomputes
+    :func:`udeb_year_plain` on the saved inputs under autograd and takes
+    its vector-Jacobian product; ``jvp`` takes the plain version's
+    Jacobian-vector product with ``torch.func.jvp``.
+    """
+
+    @staticmethod
+    def forward(st, scal, ocean, init_prof, vec):
+        return _udeb_year_forward(st, scal, ocean, init_prof, vec)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        st, *tensors = inputs
+        ctx.st = st
+        ctx.save_for_backward(*tensors)
+        ctx.save_for_forward(*tensors)
+
+    @staticmethod
+    def backward(ctx, g_ocean, g_vec):
+        return (None, *plain_vjp(
+            functools.partial(udeb_year_plain, ctx.st), ctx.saved_tensors,
+            ctx.needs_input_grad[1:], (g_ocean, g_vec),
+        ))
+
+    @staticmethod
+    def jvp(ctx, _st_t, *tangents):
+        return plain_jvp(functools.partial(udeb_year_plain, ctx.st), ctx.saved_tensors, tangents)
+
+
+def _udeb_year_forward(st: UdebStatic, scal, ocean, init_prof, vec):
+    """One launch of the kernel (the plain version on CPU tensors)."""
+    if ocean.device.type == "cpu":
+        with torch.no_grad():
+            return udeb_year_plain(st, scal, ocean, init_prof, vec)
     if ocean.dtype not in _SUFFIX:
         raise TypeError(f"udeb_year: the kernel takes float32 or float64, not {ocean.dtype}")
     _check_layers(st.n, ocean.dtype)

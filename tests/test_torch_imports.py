@@ -22,7 +22,7 @@ import pytest
 import rscm_tpu_torch
 
 ROOT = Path(__file__).resolve().parent.parent
-FORBIDDEN = {"jax", "jaxlib", "rscm_tpu", "rscm"}
+FORBIDDEN = {"jax", "jaxlib", "rscm_tpu", "rscm", "optax"}
 
 
 def port_modules():
@@ -132,6 +132,61 @@ def test_flagship_graph_builds_and_steps_without_jax():
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                          text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+CALIBRATION_MODULES = [
+    "rscm_tpu_torch.calibrate",
+    "rscm_tpu_torch.calibrate.distribution",
+    "rscm_tpu_torch.calibrate.parameter_set",
+    "rscm_tpu_torch.calibrate.target",
+    "rscm_tpu_torch.calibrate.likelihood",
+    "rscm_tpu_torch.calibrate.model_runner",
+    "rscm_tpu_torch.calibrate.gradients",
+    "rscm_tpu_torch.calibrate.chain",
+    "rscm_tpu_torch.calibrate.progress",
+    "rscm_tpu_torch.calibrate.pandas_helpers",
+    "rscm_tpu_torch.calibrate.point_estimator",
+    "rscm_tpu_torch.calibrate.sampler",
+    "rscm_tpu_torch.calibrate.nuts",
+    "rscm_tpu_torch.magicc.calibration",
+    "rscm_tpu_torch.ops.plain_grad",
+]
+
+
+def test_calibration_runs_without_jax_pandas_or_optax():
+    """The calibration modules import, export the JAX package's
+    ``__all__``, and a short MAGICC calibration builds and evaluates a
+    batch of walkers with its gradient, in an interpreter where ``jax``,
+    ``pandas`` and ``optax`` cannot be imported."""
+    assert set(CALIBRATION_MODULES) <= set(port_modules())
+    from rscm_tpu.calibrate import __all__ as reference_all
+
+    code = (
+        "import sys\n"
+        "for name in ('jax', 'pandas', 'optax'):\n"
+        "    sys.modules[name] = None\n"
+        "import importlib\n"
+        f"for name in {CALIBRATION_MODULES!r}:\n"
+        "    importlib.import_module(name)\n"
+        "import numpy as np, torch\n"
+        "import rscm_tpu_torch.calibrate as calibrate\n"
+        "from rscm_tpu_torch.calibrate.gradients import value_and_grad\n"
+        "from rscm_tpu_torch.magicc.calibration import magicc_calibration\n"
+        f"assert set({sorted(reference_all)!r}) <= set(calibrate.__all__)\n"
+        "c = magicc_calibration(years=np.arange(1850.0, 1856.0), obs_interval=2, device='cpu')\n"
+        "lp = calibrate.EnsembleSampler(c.params, c.runner, c.likelihood, c.target)"
+        "._build_device_log_prob()\n"
+        "values, grads = value_and_grad(lp, torch.tensor(np.stack([c.theta_true] * 2)), 'rev')\n"
+        "assert values.shape == (2,) and grads.shape == (2, 8)\n"
+        "assert bool(torch.isfinite(values).all()) and bool(torch.isfinite(grads).all())\n"
+        "assert not any(m == 'rscm_tpu' or m.startswith(('rscm_tpu.', 'rscm.')) or m == 'rscm'"
+        " for m in sys.modules), 'the JAX package was imported'\n"
+        "print('ok')\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
 

@@ -199,3 +199,66 @@ def flagship_sweep(n, seed=42):
         "CarbonCycle.tau": rng.uniform(15.0, 60.0, n),
         "CO2ERF.erf_2xco2": rng.uniform(3.0, 4.5, n),
     }
+
+
+#: the TwoLayer toy of ``tests/test_nuts.py:26-70``
+TOY_YEARS = np.arange(2000.0, 2051.0)
+TOY_LAMBDA, TOY_ETA = 1.2, 0.7
+
+
+def build_two_layer_toy(pkg, years=TOY_YEARS, lambda0=TOY_LAMBDA, eta=TOY_ETA):
+    """The one-component TwoLayer model of ``tests/test_nuts.py::_build``
+    on ``years``, built with package ``pkg``."""
+    core = importlib.import_module(f"{pkg}.core")
+    components = importlib.import_module(f"{pkg}.components")
+    years = np.asarray(years, dtype=np.float64)
+    return (
+        core.ModelBuilder()
+        .with_time_axis(core.TimeAxis.from_values(years))
+        .with_component(
+            components.TwoLayer(
+                lambda0=lambda0, a=0.0, efficacy=1.0, eta=eta,
+                heat_capacity_surface=8.0, heat_capacity_deep=100.0,
+            )
+        )
+        .with_exogenous_variable(
+            "Effective Radiative Forcing",
+            core.Timeseries.from_values(np.full(len(years), 3.7), years),
+        )
+        .with_initial_values({"Surface Temperature": 0.0, "Deep Ocean Temperature": 0.0})
+        .build()
+    )
+
+
+def toy_target(pkg, years=TOY_YEARS, noise_seed=1, sigma=0.05):
+    """``tests/test_nuts.py::_make_target``: the truth run's temperature
+    every five years from the tenth, with N(0, 0.02) noise."""
+    calibrate = importlib.import_module(f"{pkg}.calibrate")
+    truth = build_two_layer_toy("rscm_tpu_torch", years)
+    truth.run(device="cpu")
+    temps = truth.collection.get_data("Surface Temperature").values()[:, 0]
+    rng = np.random.default_rng(noise_seed)
+    target = calibrate.Target()
+    vt = target.add_variable("Surface Temperature")
+    for i in range(10, len(years), 5):
+        vt.add(float(years[i]), float(temps[i] + rng.normal(0, 0.02)), sigma)
+    return target
+
+
+def toy_problem(pkg, names=("lambda0",), years=TOY_YEARS, device="cpu"):
+    """``(params, runner, likelihood, target)`` of the toy calibration over
+    ``names`` (``lambda0`` on U(0.5, 2.5), ``eta`` on U(0.3, 1.5)), built
+    with package ``pkg`` (the port's runner on ``device``)."""
+    calibrate = importlib.import_module(f"{pkg}.calibrate")
+    priors = {"lambda0": (0.5, 2.5), "eta": (0.3, 1.5)}
+    params = calibrate.ParameterSet()
+    for name in names:
+        params.add(name, calibrate.Uniform(*priors[name]))
+    kwargs = {"device": device} if pkg == "rscm_tpu_torch" else {}
+    runner = calibrate.CompiledModelRunner(
+        build_two_layer_toy(pkg, years),
+        param_map={name: f"TwoLayer.{name}" for name in names},
+        output_variables=["Surface Temperature"],
+        **kwargs,
+    )
+    return params, runner, calibrate.GaussianLikelihood(), toy_target(pkg, years)
