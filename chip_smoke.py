@@ -46,35 +46,60 @@ Phases, each printed with its elapsed time:
               JAX package's bench sweeps it (ECS, kappa,
               ``TerrestrialCarbon.beta``, seed 3): both launch counts must be
               250 and every output finite; 64 members re-run with the plain
-              engines must agree within 1e-10; a ring-engine run (10,000
-              members, 1850-1950) must agree with its exp-sum twin within the
-              CPU test's bounds; it prints the warm run's wall and
-              member-years/s, the PyTorch calls a year and peak device memory,
-              and over the first 101 years at the same batch the device busy
-              time and idle share, the top device operations with both
-              kernels' ms a launch and the device operations a year;
-7. flagship, host -- the flagship graph and the step-by-step executor;
-8. calibrate -- the MAGICC synthetic-truth calibration (``magicc_calibration``,
+              engines must agree within 1e-10; the run streams (``out_vars``
+              given), and the full loop (``stream=False``) at the same batch
+              must give the same values bit for bit, beside its peak memory;
+              a ring-engine run (10,000 members, 1850-1950) must agree with
+              its exp-sum twin within the CPU test's bounds; it prints the
+              warm run's wall and member-years/s, the PyTorch calls a year
+              and peak device memory, and over the first 101 years at the
+              same batch the device busy time and idle share, the top device
+              operations with both kernels' ms a launch and the device
+              operations a year;
+7. flagship -- the flagship graph (bench.py's two-layer + carbon cycle) at
+              100,000 members x 551 years;
+8. scenarios -- bench.py's cross product (``bench.py:390-430``) on the
+              flagship graph: 10,000 members x 8 emission pathways = 80,000
+              members x 551 years through ``run(exo=...)``, float64, streamed;
+              no kernel may launch; every output finite, every member warmer
+              under the highest pathway than under the lowest, one (scenario,
+              member) pair within 1e-10 of a single-scenario run; wall,
+              member-years/s, peak memory; over the first 101 years 16
+              members streamed bit-equal to the full loop, the calls a year
+              and a profile;
+9. fullmagicc -- the full-options MAGICC graph (``bench.py:305-359``: ten
+              components + permafrost + sea-level rise, bfloat16 flux
+              history) at 100,000 members x 251 years, ECS and the arctic
+              amplification swept (seed 3), streamed: both launch counts must
+              be 250, every output finite from index 1, the permafrost pools
+              conserve carbon per member, 64 members agree with the plain
+              engines within 1e-10; wall, member-years/s, peak memory; over
+              the first 101 years 16 streamed members equal to the full loop
+              bit for bit, the calls a year and a profile; the permafrost
+              and sea-level solves' device time alone;
+10. host -- the step-by-step executor;
+11. calibrate -- the MAGICC synthetic-truth calibration (``magicc_calibration``,
               1850-2100, eight parameters, float64, bfloat16 flux history)
               through the port's entry points, with both launch counts read
               around each step: the log posterior of 1,024 prior walkers as
               one batched run (250 launches each; 16 walkers against the
-              plain engines within rtol 1e-10); the MAP objective's
-              reverse-mode gradient at the truth (250 forward launches each;
-              walls, peak memory) and, at the 1850-1900 cut, its checks:
-              against the plain engines within rtol 1e-9, forward mode along
-              a seeded direction at the JAX package's bfloat16 bar, and, with
-              the flux history in float64, central differences of 16
-              perturbed walkers in one batched run within 1e-3 of its
-              largest component; one Adam step from the prior midpoint; the
-              device ensemble sampler, 1,024 walkers, two iterations under
-              the stretch and the DE move, with a checkpoint round trip;
-              NUTS, 64 chains, tree depth 2, one warmup iteration and one
-              transition at the cut; each kernel's backward (the plain
+              plain engines within rtol 1e-10); at the 1850-1900 cut, the MAP
+              objective's reverse-mode gradient at the truth (50 forward
+              launches each; walls, peak memory) and its checks: against the
+              plain engines within rtol 1e-9, forward mode along a seeded
+              direction at the JAX package's bfloat16 bar, and, with the flux
+              history in float64, central differences of 16 perturbed
+              walkers in one batched run within 1e-3 of its largest
+              component; one Adam step from the prior midpoint at the cut;
+              the device ensemble sampler, 1,024 walkers, two iterations
+              under the stretch and the DE move, with a checkpoint round
+              trip; NUTS, 64 chains, tree depth 2, one warmup iteration and
+              one transition at 1850-1875; each kernel's backward (the plain
               version recomputed and differentiated) timed alone.
 
 ``python3 chip_smoke.py PHASE ...`` runs the device and build phases and the
-named later phases only (``kernels`` and ``timing`` go with ``main``).
+named later phases only (``kernels`` and ``timing`` go with ``main``), e.g.
+``python3 chip_smoke.py scenarios fullmagicc``.
 
 Any failed check raises and the script exits non-zero.  The last three lines
 are the per-kernel JSON record, the ``nvidia-smi`` name/power line and
@@ -123,18 +148,38 @@ RING_TWIN = {"float32": 1e-8, "bfloat16": 5e-3}
 FLAGSHIP = {"members": 100_000, "years": 551, "checked": 64, "seed": 42, "step_years": 100,
             "profile_years": 101}
 FLAGSHIP_OUT = ["Surface Temperature"]
+#: the scenario cross product (bench.py:390-430): members, emission
+#: pathways, years (1750-2300), the sweep's seed, the (scenario, member) pair
+#: held against a single-scenario run, members streamed against the full
+#: loop, and the profile's years
+SCENARIOS = {"members": 10_000, "scenarios": 8, "years": 551, "seed": 5, "spot": (5, 7),
+             "streamed_checked": 16, "profile_years": 101}
+SCENARIOS_OUT = ["Surface Temperature"]
+#: the full-options MAGICC graph (bench.py:305-359, the 100k point): members,
+#: the sweep's seed, members re-run through the plain engines, members
+#: streamed against the full loop, the profile's years, and the standalone
+#: solves timed for the permafrost and sea-level shares of device time
+FULLMAGICC = {"members": 100_000, "seed": 3, "checked": 64, "streamed_checked": 16,
+              "profile_years": 101, "component_reps": 10}
+#: bench.py's outputs, and the permafrost outputs the conservation identity
+#: is read from
+FULLMAGICC_OUT = ["Surface Temperature", "Sea Level Rise", "Emissions|CO2|Permafrost",
+                  "Emissions|CH4|Permafrost", "Permafrost|Total Pool"]
+#: |total pool + cumulative emissions - initial pool| per member, GtC
+#: (tests/test_torch_permafrost.py::CONSERVATION_GTC)
+CONSERVATION_GTC = 1e-8
 #: ClimateUDEB through step(): the years it steps
 HOST_UDEB_STEPS = 10
 #: the calibration path (bench.py:666-760, magicc_calibration at 1850-2100,
 #: eight parameters): walkers, walkers re-run through the plain engines, the
-#: finite-difference step (of each prior's span), the axis of the
-#: gradient's checks and of NUTS (1850 to this year), Adam's steps, the
-#: ensemble sampler's iterations, NUTS's chains, tree depth and initial step
-#: size (the default 0.1 diverges at once on this posterior from around the
-#: truth: 63 of 64 chains on the H100)
+#: finite-difference step (of each prior's span), the axis of the gradient,
+#: its checks and Adam (1850 to this year), Adam's steps, the ensemble
+#: sampler's iterations, NUTS's axis (1850 to this year), chains, tree depth
+#: and initial step size (the default 0.1 diverges at once on this posterior
+#: from around the truth: 63 of 64 chains on the H100)
 CALIB = {"walkers": 1024, "checked": 16, "fd_rel_step": 1e-6, "cut_last_year": 1900.0,
-         "adam_steps": 1, "ensemble_iterations": 2, "nuts_chains": 64, "nuts_depth": 2,
-         "nuts_step_size": 0.01}
+         "adam_steps": 1, "ensemble_iterations": 2, "nuts_last_year": 1875.0,
+         "nuts_chains": 64, "nuts_depth": 2, "nuts_step_size": 0.01}
 DEVICE = "cuda"
 #: kernel vs plain version, |kernel - plain| <= atol + rtol * |plain|.  Both do
 #: the same operations in the same order and the kernels are built with
@@ -636,9 +681,10 @@ def phase_main():
         raise AssertionError("golden 10_full_default check failed")
 
     small = runner.batched_params({k: v[:n_check] for k, v in sweep.items()})
-    calls = count_torch_calls(lambda: runner.run(small, out_vars=["Surface Temperature"]))
-    log(f"  main path: {calls} PyTorch operator calls a run, {calls / n_steps:.1f} a year "
-        f"(at {n_check} members; the count does not depend on the batch)")
+    calls, syncs = count_torch_calls(lambda: runner.run(small, out_vars=["Surface Temperature"]))
+    log(f"  main path: {calls} PyTorch operator calls a run, {calls / n_steps:.1f} a year, "
+        f"{syncs / n_steps:.1f} of them synchronising (at {n_check} members; the count does "
+        f"not depend on the batch)")
     return runner, params, launches, n_steps
 
 
@@ -686,18 +732,18 @@ def phase_second_path():
 
 
 def profile_main(runner, params, wall, smi, out_vars=("Surface Temperature",),
-                 what="main-path", n_steps=None, host_ops=True):
+                 what="main-path", n_steps=None, host_ops=True, exo=None):
     """Device time of one run by kernel, from torch.profiler, and the
     device's idle share against the run's wall time; with ``n_steps``, the
     device operations a year too.  ``host_ops=False`` records device
     activity only (tracing every host operator of a run with ~400,000 of
-    them costs minutes)."""
+    them costs minutes).  Returns the busy milliseconds."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if host_ops else [])
     with profile(activities=activities) as prof:
-        runner.run(params, out_vars=list(out_vars))
+        runner.run(params, exo=exo, out_vars=list(out_vars))
         torch.cuda.synchronize()
     # device-side events only (kernels, copies): the CPU-op rows carry the
     # same device time again under the op's name
@@ -709,7 +755,7 @@ def profile_main(runner, params, wall, smi, out_vars=("Surface Temperature",),
     busy_ms = sum(ms for ms, _, _ in rows)
     if not rows:
         log("  profile: the profiler recorded no device time (not measured)")
-        return
+        return None
     log(f"  profile of one {what} run: device busy {busy_ms:.1f} ms of a {wall * 1e3:.1f} ms "
         f"unprofiled wall (idle share {1 - busy_ms / (wall * 1e3):.3f}) on {smi}; "
         f"top device time:")
@@ -724,11 +770,18 @@ def profile_main(runner, params, wall, smi, out_vars=("Surface Temperature",),
             if kernel in key:
                 log(f"  profile: {kernel} {ms:.2f} ms over {count} launches "
                     f"({ms / count:.4f} ms a launch) on the {what} path")
+    return busy_ms
 
 
 def count_torch_calls(fn):
     """PyTorch operator calls ``fn`` makes (every aten operator the
-    dispatcher sees: arithmetic, views, copies, indexing)."""
+    dispatcher sees: arithmetic, views, copies, indexing), and how many of
+    them made the host wait for the card (the warnings of
+    ``torch.cuda.set_sync_debug_mode``: a copy from host memory, a read of a
+    device value)."""
+    import warnings
+
+    import torch
     from torch.utils._python_dispatch import TorchDispatchMode
 
     class Count(TorchDispatchMode):
@@ -738,9 +791,16 @@ def count_torch_calls(fn):
             Count.calls += 1
             return func(*args, **(kwargs or {}))
 
-    with Count():
-        fn()
-    return Count.calls
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with Count():
+                fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = sum("synchroniz" in str(w.message) for w in caught)
+    return Count.calls, syncs
 
 
 def magicc_sweep(n, seed=3):
@@ -789,10 +849,23 @@ def phase_magicc(smi):
     torch.cuda.synchronize()
     launches = {"udeb_year": udeb_year.launches, "lamcalc": lamcalc.launches}
     peak = torch.cuda.max_memory_allocated()
-    log(f"  MAGICC path: {b} members x {n_years} years, float64; launches {launches}; "
-        f"peak device memory {peak / 2**30:.2f} GiB on {smi}")
+    log(f"  MAGICC path: {b} members x {n_years} years, float64, streamed (out_vars given); "
+        f"launches {launches}; peak device memory {peak / 2**30:.2f} GiB on {smi}")
     if launches != {"udeb_year": n_steps, "lamcalc": n_steps}:
         raise AssertionError(f"MAGICC path launches {launches}, expected {n_steps} each")
+    # the full loop (every trajectory kept) at the same batch: its peak
+    # memory, and its values against the streamed run's
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    full = runner.run(params, stream=False)
+    torch.cuda.synchronize()
+    full_peak = torch.cuda.max_memory_allocated()
+    log(f"  MAGICC path, full loop (stream=False): peak device memory {full_peak / 2**30:.2f} "
+        f"GiB against {peak / 2**30:.2f} GiB streamed on {smi}")
+    for name in MAGICC_OUT:
+        assert_bit_equal(f"MAGICC {b} members {name}, streamed vs full loop", out[name],
+                         full[name])
+    del full
     for name, arr in out.items():
         if tuple(arr.shape)[:2] != (b, n_years) or not bool(torch.isfinite(arr).all()):
             raise AssertionError(f"MAGICC output {name}: shape {tuple(arr.shape)}, "
@@ -845,9 +918,10 @@ def phase_magicc(smi):
     log(f"  MAGICC path: warm wall {wall:.3f} s, {b * n_steps / wall:.4e} member-years/s "
         f"on {smi}")
     small = runner.batched_params({n: v[:k] for n, v in sweep.items()})
-    calls = count_torch_calls(lambda: runner.run(small, out_vars=MAGICC_OUT))
-    log(f"  MAGICC path: {calls} PyTorch operator calls a run, {calls / n_steps:.1f} a year "
-        f"(at {k} members; the count does not depend on the batch)")
+    calls, syncs = count_torch_calls(lambda: runner.run(small, out_vars=MAGICC_OUT))
+    log(f"  MAGICC path: {calls} PyTorch operator calls a run, {calls / n_steps:.1f} a year, "
+        f"{syncs / n_steps:.1f} of them synchronising (at {k} members; the count does not "
+        f"depend on the batch)")
     del runner, params
 
     # the profile over the first years at the same batch: tracing the
@@ -879,8 +953,9 @@ def flagship_emissions(n_years):
     ])[:n_years]
 
 
-def build_flagship(n_years):
-    """The flagship graph of ``bench.py:123-180``, built with the port."""
+def build_flagship(n_years, emissions=None):
+    """The flagship graph of ``bench.py:123-180``, built with the port
+    (``emissions``, GtC / yr a year, in place of bench.py's ramp)."""
     import numpy as np
 
     from rscm_tpu_torch.components import CO2ERF, CarbonCycle, TwoLayer
@@ -905,8 +980,8 @@ def build_flagship(n_years):
         .with_component(CO2ERF(erf_2xco2=3.93, conc_pi=278.0))
         .with_component(TwoLayer(lambda0=1.1, a=0.0, efficacy=1.3, eta=0.8,
                                  heat_capacity_surface=8.0, heat_capacity_deep=110.0))
-        .with_exogenous_variable("Emissions|CO2|Anthropogenic",
-                                 Timeseries.from_values(flagship_emissions(n_years), years))
+        .with_exogenous_variable("Emissions|CO2|Anthropogenic", Timeseries.from_values(
+            flagship_emissions(n_years) if emissions is None else emissions, years))
         .with_initial_values({
             "Surface Temperature": 0.0, "Deep Ocean Temperature": 0.0,
             "Atmospheric Concentration|CO2": 278.0, "Cumulative Emissions|CO2": 0.0,
@@ -1001,10 +1076,304 @@ def phase_flagship(smi):
     profile_main(short, short_params, short_wall, smi, out_vars=FLAGSHIP_OUT,
                  what=f"{n_short}-year flagship", n_steps=n_short - 1, host_ops=False)
     small = short.batched_params({n: v[:k] for n, v in sweep.items()})
-    calls = count_torch_calls(lambda: short.run(small, out_vars=FLAGSHIP_OUT))
+    calls, syncs = count_torch_calls(lambda: short.run(small, out_vars=FLAGSHIP_OUT))
     log(f"  flagship path: {calls} PyTorch operator calls in {n_short - 1} years, "
-        f"{calls / (n_short - 1):.1f} a year (at {k} members; the count does not depend on "
-        f"the batch)")
+        f"{calls / (n_short - 1):.1f} a year, {syncs / (n_short - 1):.1f} of them "
+        f"synchronising (at {k} members; the count does not depend on the batch)")
+
+
+def assert_bit_equal(what, got, want):
+    """``got`` and ``want`` equal bit for bit (NaN where the other has NaN)."""
+    import torch
+
+    same = (tuple(got.shape) == tuple(want.shape)
+            and torch.equal(torch.isnan(got), torch.isnan(want))
+            and torch.equal(got.nan_to_num(0.0), want.nan_to_num(0.0)))
+    log(f"  {what}: {'bit-equal' if same else 'DIFFERENT'}")
+    if not same:
+        raise AssertionError(f"{what}: not bit-equal")
+
+
+def ssp_scenarios(n_years, n_scenarios):
+    """bench.py's eight sine-peak emission pathways (``bench.py:398-410``),
+    peaks 2-30 GtC / yr, declines 0.9-0: ``(S, n_years, 1)``."""
+    import numpy as np
+
+    ramp = np.linspace(0.0, 1.0, n_years)
+    peaks = np.linspace(2.0, 30.0, n_scenarios)
+    declines = np.linspace(0.9, 0.0, n_scenarios)
+    return np.stack([
+        np.maximum(peak * np.sin(np.pi * np.clip(ramp / (1.0 - 0.4 * dec), 0, 1)), 0.0)[:, None]
+        for peak, dec in zip(peaks, declines)
+    ])
+
+
+def phase_scenarios(smi):
+    """bench.py's parameter x scenario cross product on the flagship graph:
+    10,000 members x 8 emission pathways x 551 years through ``run(exo=...)``."""
+    import numpy as np
+    import torch
+
+    from rscm_tpu_torch.ops.lamcalc_kernel import lamcalc
+    from rscm_tpu_torch.ops.udeb_month import udeb_year
+    from rscm_tpu_torch.parallel import EnsembleRunner
+
+    n, n_scen, n_years = SCENARIOS["members"], SCENARIOS["scenarios"], SCENARIOS["years"]
+    b = n * n_scen
+    n_steps = n_years - 1
+    model = build_flagship(n_years)
+    runner = EnsembleRunner(model)
+    rng = np.random.default_rng(SCENARIOS["seed"])
+    member = {"TwoLayer.lambda0": rng.uniform(0.8, 1.8, n),
+              "CarbonCycle.tau": rng.uniform(15.0, 60.0, n)}
+    params = runner.batched_params({k: np.tile(v, n_scen) for k, v in member.items()})
+    scenarios = ssp_scenarios(n_years, n_scen)
+    emis = "Emissions|CO2|Anthropogenic"
+    # the scenario batch made on the card in bulk: (B, n_years, 1)
+    exo = {emis: torch.as_tensor(scenarios, dtype=torch.float64, device=DEVICE)
+           .repeat_interleave(n, dim=0)}
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    udeb_year.launches = 0
+    lamcalc.launches = 0
+    t = time.perf_counter()
+    out = runner.run(params, exo=exo, out_vars=SCENARIOS_OUT)
+    torch.cuda.synchronize()
+    first = time.perf_counter() - t
+    launches = {"udeb_year": udeb_year.launches, "lamcalc": lamcalc.launches}
+    peak = torch.cuda.max_memory_allocated()
+    log(f"  scenarios path: {n} members x {n_scen} pathways = {b} members x {n_years} years, "
+        f"float64, streamed; launches {launches} (no kernel runs on this graph); first run "
+        f"{first:.3f} s; peak device memory {peak / 2**30:.2f} GiB (the scenario batch "
+        f"{exo[emis].numel() * 8 / 2**30:.2f} GiB of it) on {smi}")
+    if launches != {"udeb_year": 0, "lamcalc": 0}:
+        raise AssertionError(f"scenarios path launches {launches}, expected none")
+    temps = out["Surface Temperature"]
+    if tuple(temps.shape) != (b, n_years, 1) or not bool(torch.isfinite(temps).all()):
+        raise AssertionError(f"scenarios output: shape {tuple(temps.shape)}, or non-finite")
+    final = temps[:, -1, 0].reshape(n_scen, n)
+    log(f"  2300 warming by pathway (median over members): "
+        f"{[round(float(v), 3) for v in final.median(dim=1).values]} K")
+    if not bool((final[-1] > final[0]).all()):
+        raise AssertionError("a member is not warmer under the highest pathway than the lowest")
+
+    # one (scenario, member) pair against a single-scenario run of the port
+    s, m = SCENARIOS["spot"]
+    single = EnsembleRunner(build_flagship(n_years, emissions=scenarios[s, :, 0]))
+    one = single.run(single.batched_params({k: v[m:m + 1] for k, v in member.items()}),
+                     out_vars=SCENARIOS_OUT)["Surface Temperature"]
+    check_close(f"scenario {s} member {m} against a single-scenario run",
+                temps[s * n + m], one[0], 1e-10, 0.0)
+
+    del out, temps, single
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    runner.run(params, exo=exo, out_vars=SCENARIOS_OUT)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    log(f"  scenarios path: warm wall {wall:.3f} s, {b * n_steps / wall:.4e} member-years/s "
+        f"(first run {b * n_steps / first:.4e}) on {smi}")
+    del runner, params
+
+    # the profile and the calls a year over the first years at the same batch
+    n_short = SCENARIOS["profile_years"]
+    short = EnsembleRunner(build_flagship(n_short))
+    short_params = short.batched_params({k: np.tile(v, n_scen) for k, v in member.items()})
+    short_exo = {emis: exo[emis][:, :n_short]}
+    short.run(short_params, exo=short_exo, out_vars=SCENARIOS_OUT)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    short.run(short_params, exo=short_exo, out_vars=SCENARIOS_OUT)
+    torch.cuda.synchronize()
+    short_wall = time.perf_counter() - t
+    log(f"  scenarios path, first {n_short} years: warm wall {short_wall:.3f} s, "
+        f"{b * (n_short - 1) / short_wall:.4e} member-years/s on {smi}")
+    profile_main(short, short_params, short_wall, smi, out_vars=SCENARIOS_OUT,
+                 what=f"{n_short}-year scenarios", n_steps=n_short - 1, host_ops=False,
+                 exo=short_exo)
+    # members streamed against the full loop bit for bit, and the calls a year
+    k = SCENARIOS["streamed_checked"]
+    tiny = short.batched_params({key: np.tile(v, n_scen)[:k] for key, v in member.items()})
+    tiny_exo = {emis: short_exo[emis][:k]}
+    streamed = short.run(tiny, exo=tiny_exo, out_vars=SCENARIOS_OUT)
+    full = short.run(tiny, exo=tiny_exo, stream=False)
+    assert_bit_equal(f"scenarios {k} members x {n_short} years, streamed vs full loop",
+                     streamed["Surface Temperature"], full["Surface Temperature"])
+    calls, syncs = count_torch_calls(lambda: short.run(tiny, exo=tiny_exo,
+                                                       out_vars=SCENARIOS_OUT))
+    log(f"  scenarios path: {calls} PyTorch operator calls in {n_short - 1} years, "
+        f"{calls / (n_short - 1):.1f} a year, {syncs / (n_short - 1):.1f} of them "
+        f"synchronising (at {k} members)")
+
+
+def component_device_ms(solve, reps):
+    """Device milliseconds of one ``solve()`` call (a component's yearly
+    solve alone), from torch.profiler over ``reps`` calls."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    solve()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            solve()
+        torch.cuda.synchronize()
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA)
+    return busy / 1e3 / reps
+
+
+def phase_fullmagicc(smi):
+    """The full-options MAGICC graph (ten components + permafrost + sea-level
+    rise) at 100,000 members x 251 years, as bench.py's 100k point runs it."""
+    import numpy as np
+    import torch
+
+    from rscm_tpu_torch.magicc.carbon.permafrost import MT_CH4_PER_GTC
+    from rscm_tpu_torch.magicc.coupled import build_magicc_model
+    from rscm_tpu_torch.ops.lamcalc_kernel import lamcalc
+    from rscm_tpu_torch.ops.udeb_month import udeb_year
+    from rscm_tpu_torch.parallel import EnsembleRunner
+
+    options = {"include_permafrost": True, "include_slr": True,
+               "ocean_params": {"history_dtype": "bfloat16"}}
+    model = build_magicc_model(**options)
+    n_years = len(model.time_axis)
+    n_steps = n_years - 1
+    comps = {type(c).__name__: c for c in model.graph.nodes}
+    engine = comps["OceanCarbon"].resolved_engine()
+    log(f"  full-options graph: {len(model.exec_order)} nodes, {n_years} years, ocean carbon "
+        f"engine {engine!r}, month engine {comps['ClimateUDEB'].month_engine!r}, permafrost "
+        f"{comps['Permafrost'].n_bands} bands, SLR history {comps['SeaLevelRise'].max_history_steps}"
+        f" steps ({comps['SeaLevelRise'].ais_sid_parameterisation})")
+    if engine != "expsum":
+        raise AssertionError(f"the full-options path resolved to the {engine!r} engine")
+    b = FULLMAGICC["members"]
+    rng = np.random.default_rng(FULLMAGICC["seed"])
+    sweep = {"ClimateUDEB.ecs": rng.uniform(1.8, 5.5, b),
+             "Permafrost.arctic_amplification": rng.uniform(1.5, 2.5, b)}
+    runner = EnsembleRunner(model)
+    params = runner.batched_params(sweep)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    udeb_year.launches = 0
+    lamcalc.launches = 0
+    t = time.perf_counter()
+    out = runner.run(params, out_vars=FULLMAGICC_OUT)
+    torch.cuda.synchronize()
+    first = time.perf_counter() - t
+    launches = {"udeb_year": udeb_year.launches, "lamcalc": lamcalc.launches}
+    peak = torch.cuda.max_memory_allocated()
+    log(f"  full-options path: {b} members x {n_years} years, float64, streamed; launches "
+        f"{launches}; first run {first:.3f} s; peak device memory {peak / 2**30:.2f} GiB on "
+        f"{smi}")
+    if launches != {"udeb_year": n_steps, "lamcalc": n_steps}:
+        raise AssertionError(f"full-options path launches {launches}, expected {n_steps} each")
+    for name, arr in out.items():
+        if tuple(arr.shape)[:2] != (b, n_years) or not bool(torch.isfinite(arr[:, 1:]).all()):
+            raise AssertionError(f"full-options output {name}: shape {tuple(arr.shape)}, or "
+                                 "non-finite values from index 1")
+    if not bool(torch.isfinite(out["Surface Temperature"]).all()):
+        raise AssertionError("full-options Surface Temperature not finite")
+    # total pool + cumulative emissions == initial pool, per member
+    dt = torch.as_tensor(np.diff(model.time_axis.values()), dtype=torch.float64, device=DEVICE)
+    emitted = ((out["Emissions|CO2|Permafrost"][:, 1:, 0]
+                + out["Emissions|CH4|Permafrost"][:, 1:, 0] / MT_CH4_PER_GTC) * dt).cumsum(1)
+    balance = out["Permafrost|Total Pool"][:, 1:, 0] + emitted
+    err = float((balance - float(comps["Permafrost"].total_pool)).abs().max())
+    log(f"  permafrost conservation: max |pool + cumulative emissions - "
+        f"{float(comps['Permafrost'].total_pool):g}| {err:.3e} GtC over {b} members x "
+        f"{n_steps} years (bound {CONSERVATION_GTC:g})")
+    if not err < CONSERVATION_GTC:
+        raise AssertionError(f"permafrost carbon not conserved: {err:.3e} GtC")
+    w = torch.tensor(FOURBOX_WEIGHTS, dtype=torch.float64, device=DEVICE)
+    final = (out["Surface Temperature"][:, -1] * w).sum(-1)
+    slr = out["Sea Level Rise"][:, -1, 0]
+    log(f"  2100: global warming median {float(final.median()):.3f} K, sea level rise min "
+        f"{float(slr.min()):.1f} mm, median {float(slr.median()):.1f} mm, max "
+        f"{float(slr.max()):.1f} mm; permafrost CO2 median "
+        f"{float(out['Emissions|CO2|Permafrost'][:, -1, 0].median()):.4f} GtC/yr")
+
+    # the plain versions of both kernels on the first members
+    k = FULLMAGICC["checked"]
+    plain = EnsembleRunner(build_magicc_model(
+        **options, udeb_params={"month_engine": "torch"}))
+    plain_out = plain.run(plain.batched_params({n: v[:k] for n, v in sweep.items()}),
+                          out_vars=FULLMAGICC_OUT)
+    for name in FULLMAGICC_OUT:
+        check_close(f"full-options {k} members {name}, month_engine='torch' vs the kernels",
+                    out[name][:k, 1:], plain_out[name][:, 1:], 1e-10, 1e-10)
+    del plain, plain_out
+
+    del out, balance, emitted
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    runner.run(params, out_vars=FULLMAGICC_OUT)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    log(f"  full-options path: warm wall {wall:.3f} s, {b * n_steps / wall:.4e} member-years/s "
+        f"(first run {b * n_steps / first:.4e}) on {smi}")
+    del runner, params
+
+    # over the first years: members streamed against the full loop bit for
+    # bit, the calls a year, and the profile at the same batch
+    n_short = FULLMAGICC["profile_years"]
+    short = EnsembleRunner(build_magicc_model(years=np.arange(1850.0, 1850.0 + n_short),
+                                              **options))
+    short_params = short.batched_params(sweep)
+    short.run(short_params, out_vars=FULLMAGICC_OUT)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    short.run(short_params, out_vars=FULLMAGICC_OUT)
+    torch.cuda.synchronize()
+    short_wall = time.perf_counter() - t
+    log(f"  full-options path, first {n_short} years: warm wall {short_wall:.3f} s, "
+        f"{b * (n_short - 1) / short_wall:.4e} member-years/s on {smi}")
+    busy = profile_main(short, short_params, short_wall, smi, out_vars=FULLMAGICC_OUT,
+                        what=f"{n_short}-year full-options", n_steps=n_short - 1,
+                        host_ops=False)
+    k = FULLMAGICC["streamed_checked"]
+    small = short.batched_params({n: v[:k] for n, v in sweep.items()})
+    streamed = short.run(small, out_vars=FULLMAGICC_OUT)
+    full = short.run(small, stream=False)
+    for name in FULLMAGICC_OUT:
+        assert_bit_equal(f"full-options {k} members x {n_short} years {name}, streamed vs "
+                         f"full loop", streamed[name], full[name])
+    del streamed, full
+    calls, syncs = count_torch_calls(lambda: short.run(small, out_vars=FULLMAGICC_OUT))
+    log(f"  full-options path: {calls} PyTorch operator calls in {n_short - 1} years, "
+        f"{calls / (n_short - 1):.1f} a year, {syncs / (n_short - 1):.1f} of them "
+        f"synchronising (at {k} members)")
+
+    # the permafrost and sea-level solves alone, a year each at the batch
+    # (the permafrost grid: the (B, 12 * n_bands) month-major axis)
+    pf = comps["Permafrost"].with_params({"arctic_amplification": torch.as_tensor(
+        sweep["Permafrost.arctic_amplification"], dtype=torch.float64, device=DEVICE)})
+    pf_state = {key: torch.as_tensor(np.asarray(v, dtype=np.float64), device=DEVICE)
+                for key, v in pf.create_initial_state().items()}
+    temp = torch.full((b,), 1.5, dtype=torch.float64, device=DEVICE)
+    pf_ms = component_device_ms(lambda: pf.solve_permafrost(pf_state, temp, 1.0),
+                                FULLMAGICC["component_reps"])
+    slr = comps["SeaLevelRise"]
+    slr_state = {key: torch.as_tensor(np.asarray(v, dtype=np.float64), device=DEVICE)
+                 for key, v in slr.create_initial_state().items()}
+    slr_state["t_hist"] = torch.zeros((b, slr.max_history_steps), dtype=torch.float64,
+                                      device=DEVICE)
+    ohc = torch.full((b,), 1e9, dtype=torch.float64, device=DEVICE)
+    year = n_short - 2  # the profile's last year: the longest history product
+    slr_ms = component_device_ms(
+        lambda: slr.solve_slr(slr_state, temp, ohc, 1850.0 + year, year, 1.0),
+        FULLMAGICC["component_reps"])
+    log(f"  permafrost solve alone: {pf_ms:.3f} ms of device time a year at {b} members; "
+        f"sea-level solve alone: {slr_ms:.3f} ms (year {year}) on {smi}")
+    if busy:
+        log(f"  permafrost share of the {n_short}-year profile's device time: "
+            f"{pf_ms * (n_short - 1) / busy:.1%} ({pf_ms * (n_short - 1):.1f} of {busy:.1f} ms); "
+            f"sea level at most {slr_ms * (n_short - 1) / busy:.1%}")
 
 
 def phase_host_executor(smi, golden_base):
@@ -1281,40 +1650,32 @@ def phase_calibrate(smi):
             log(f"  walker {i} (-inf): {dict(zip(calib.param_names, walkers[i].tolist()))}")
 
     # 2. the MAP objective's gradient at the truth, reverse mode, through the
-    # kernels on the production problem
-    theta = calib.runner.as_theta(calib.theta_true[None])
-    obj = objective(calib, calib.target)
-    torch.cuda.reset_peak_memory_stats()
-    reset()
-    with torch.enable_grad():
-        x = theta.clone().requires_grad_(True)
-        t = synced()
-        value = obj(x)
-        t_fwd = synced() - t
-        (grad,) = torch.autograd.grad(value.sum(), x)
-        t_bwd = synced() - t - t_fwd
-    peak = torch.cuda.max_memory_allocated()
-    expect("gradient at the truth (forward launches)", n_steps)
-    grad = grad[0]
-    log(f"  gradient at the truth, reverse mode: forward with the tape {t_fwd:.3f} s, "
-        f"backward {t_bwd:.3f} s, peak device memory {peak / 2**30:.3f} GiB on {smi}; "
-        f"objective {float(value[0].detach()):.10e}, gradient {grad.tolist()}")
-    if not bool(torch.isfinite(grad).all()) or not bool((grad != 0).all()):
-        raise AssertionError(f"gradient {grad.tolist()}")
-
-    # the gradient's checks at the 1850-1900 cut (each 251-year gradient is
-    # ~150 s of host-bound backward on the card): against the plain engines,
-    # forward mode along a seeded unit direction, and central differences
+    # kernels, and its checks, at the 1850-1900 cut (a 251-year gradient is
+    # ~120-150 s of host-bound backward on the card): against the plain
+    # engines, forward mode along a seeded unit direction, and central
+    # differences
     cut_years = np.arange(1850.0, CALIB["cut_last_year"] + 1.0)
     cut = magicc_calibration(years=cut_years)
     cut_steps = len(cut_years) - 1
     cut_obj = objective(cut, cut.target)
     cut_theta = cut.runner.as_theta(cut.theta_true[None])
+    torch.cuda.reset_peak_memory_stats()
     reset()
-    t = synced()
-    _, cut_grad = value_and_grad(cut_obj, cut_theta, "rev")
-    log(f"  gradient at the truth, {cut_steps + 1} years: {synced() - t:.3f} s")
-    expect("gradient at the cut", cut_steps)
+    with torch.enable_grad():
+        x = cut_theta.clone().requires_grad_(True)
+        t = synced()
+        value = cut_obj(x)
+        t_fwd = synced() - t
+        (cut_grad,) = torch.autograd.grad(value.sum(), x)
+        t_bwd = synced() - t - t_fwd
+    peak = torch.cuda.max_memory_allocated()
+    expect(f"gradient at the truth, {cut_steps + 1} years (forward launches)", cut_steps)
+    grad = cut_grad[0]
+    log(f"  gradient at the truth, reverse mode, {cut_steps + 1} years: forward with the tape "
+        f"{t_fwd:.3f} s, backward {t_bwd:.3f} s, peak device memory {peak / 2**30:.3f} GiB on "
+        f"{smi}; objective {float(value[0].detach()):.10e}, gradient {grad.tolist()}")
+    if not bool(torch.isfinite(grad).all()) or not bool((grad != 0).all()):
+        raise AssertionError(f"gradient {grad.tolist()}")
     t = synced()
     _, plain_grad = value_and_grad(objective(plain_runner(cut), cut.target), cut_theta, "rev")
     log(f"  the same gradient through the plain engines: {synced() - t:.3f} s")
@@ -1368,28 +1729,29 @@ def phase_calibrate(smi):
     lst, packed = lamcalc_inputs(1, torch.float64, seed=5, fallback_every=0)
     lam_bwd = plain_backward_ms(lambda p: LamcalcFunction.apply(lst, p), [packed], smi,
                                 "lamcalc (B=1)")
-    log(f"  the kernels' backwards in one gradient: {n_steps} x ({udeb_bwd[1]:.3f} + "
-        f"{lam_bwd[1]:.3f}) ms = {n_steps * (udeb_bwd[1] + lam_bwd[1]) / 1e3:.3f} s of wall, "
-        f"{n_steps * udeb_bwd[1] / 1e3 / t_bwd:.1%} of the backward's {t_bwd:.3f} s in "
-        f"udeb_year's (device time {n_steps * udeb_bwd[0] / 1e3:.3f} s)")
+    log(f"  the kernels' backwards in one gradient: {cut_steps} x ({udeb_bwd[1]:.3f} + "
+        f"{lam_bwd[1]:.3f}) ms = {cut_steps * (udeb_bwd[1] + lam_bwd[1]) / 1e3:.3f} s of wall, "
+        f"{cut_steps * udeb_bwd[1] / 1e3 / t_bwd:.1%} of the backward's {t_bwd:.3f} s in "
+        f"udeb_year's (device time {cut_steps * udeb_bwd[0] / 1e3:.3f} s)")
 
-    # 3. Adam from the prior midpoint (reverse-mode gradients), on the
-    # production problem (bfloat16 flux history)
-    est = PointEstimator(calib.params, calib.runner, calib.likelihood, calib.target)
+    # 3. Adam from the prior midpoint (reverse-mode gradients), at the cut
+    # (bfloat16 flux history)
+    est = PointEstimator(cut.params, cut.runner, cut.likelihood, cut.target)
     mid = list(0.5 * (lower + upper))
     with torch.no_grad():
-        start = float(obj(calib.runner.as_theta(np.asarray(mid)[None]))[0])
+        start = float(cut_obj(cut.runner.as_theta(np.asarray(mid)[None]))[0])
     n_adam = CALIB["adam_steps"]
     reset()
     t = synced()
     fit = est.optimize(AdamOptimizer(learning_rate=0.03, n_steps=n_adam, fwd_threshold=0),
                        x0=mid)
     wall = synced() - t
-    expect(f"Adam, {n_adam} step(s)", n_steps * (n_adam + 1) + n_steps)
+    expect(f"Adam, {n_adam} step(s)", cut_steps * (n_adam + 1) + cut_steps)
     best = np.asarray(fit.best_params)
     with torch.no_grad():
-        end = float(obj(calib.runner.as_theta(best[None]))[0])
-    log(f"  Adam, {n_adam} step(s) from the prior midpoint: objective {start:.6e} -> {end:.6e}, "
+        end = float(cut_obj(cut.runner.as_theta(best[None]))[0])
+    log(f"  Adam, {n_adam} step(s) from the prior midpoint, {cut_steps + 1} years: objective "
+        f"{start:.6e} -> {end:.6e}, "
         f"{wall:.3f} s ({wall / n_adam:.3f} s a step with the final objective and the "
         f"host evaluation) on {smi}")
     if not end <= start or not np.all((lower < best) & (best < upper)):
@@ -1427,8 +1789,11 @@ def phase_calibrate(smi):
             raise AssertionError(f"{label}: the checkpoint did not round-trip")
         records[label] = wall
 
-    # 5. NUTS at the 1850-1900 cut, reverse-mode gradients
-    nuts = NUTSSampler(cut.params, cut.runner, cut.likelihood, cut.target,
+    # 5. NUTS at its own 1850-1875 cut, reverse-mode gradients
+    nuts_years = np.arange(1850.0, CALIB["nuts_last_year"] + 1.0)
+    nuts_cut = magicc_calibration(years=nuts_years)
+    nuts_steps = len(nuts_years) - 1
+    nuts = NUTSSampler(nuts_cut.params, nuts_cut.runner, nuts_cut.likelihood, nuts_cut.target,
                        max_tree_depth=CALIB["nuts_depth"], grad_mode="rev")
     c = CALIB["nuts_chains"]
     reset()
@@ -1436,15 +1801,16 @@ def phase_calibrate(smi):
     # chains start around the truth, as the JAX package's NUTS test of the
     # MAGICC graph starts them (from prior draws the first trajectories of a
     # posterior this peaked diverge at once)
-    init = cut.theta_true * (1.0 + 0.01 * np.random.default_rng(6).uniform(-1.0, 1.0, (c, d)))
+    init = nuts_cut.theta_true * (
+        1.0 + 0.01 * np.random.default_rng(6).uniform(-1.0, 1.0, (c, d)))
     chain = nuts.run(n_iterations=1, n_chains=c, warmup=1, seed=5, init_positions=init,
                      step_size=CALIB["nuts_step_size"])
     wall = synced() - t
     diag = nuts.last_diagnostics
-    expect("NUTS", cut_steps * diag["n_gradient_evals"])
+    expect("NUTS", nuts_steps * diag["n_gradient_evals"])
     samples = chain.flat_samples()
     log(f"  NUTS, {c} chains, depth {CALIB['nuts_depth']}, 1 warmup + 1 transition, "
-        f"{cut_steps + 1} years: wall {wall:.3f} s, {diag['n_gradient_evals']} batched "
+        f"{nuts_steps + 1} years: wall {wall:.3f} s, {diag['n_gradient_evals']} batched "
         f"value-and-gradient evaluations ({wall / diag['n_gradient_evals']:.3f} s each, "
         f"{wall / (diag['n_gradient_evals'] * c) * 1e3:.1f} ms a chain), {diag['n_model_evals']} "
         f"chain leapfrog steps in growing trees, {diag['n_divergences']} divergences, step "
@@ -1455,12 +1821,13 @@ def phase_calibrate(smi):
         raise AssertionError(f"NUTS counted {diag['n_model_evals']} model evaluations in "
                              f"{diag['n_leapfrog_steps']} leapfrog steps of {c} chains")
     return {
-        "udeb_year": {"launches_per_gradient": n_steps, "backward_ms": udeb_bwd[0]},
-        "lamcalc": {"launches_per_gradient": n_steps, "backward_ms": lam_bwd[0]},
+        "udeb_year": {"launches_per_gradient": cut_steps, "backward_ms": udeb_bwd[0]},
+        "lamcalc": {"launches_per_gradient": cut_steps, "backward_ms": lam_bwd[0]},
     }
 
 
-PHASES = ("main", "second", "magicc", "flagship", "host", "calibrate")
+PHASES = ("main", "second", "magicc", "flagship", "scenarios", "fullmagicc", "host",
+          "calibrate")
 
 
 def main(selected):
@@ -1491,6 +1858,12 @@ def main(selected):
     if "flagship" in run:
         with Phase("flagship"):
             phase_flagship(smi)
+    if "scenarios" in run:
+        with Phase("scenarios"):
+            phase_scenarios(smi)
+    if "fullmagicc" in run:
+        with Phase("fullmagicc"):
+            phase_fullmagicc(smi)
     if "host" in run:
         with Phase("host"):
             _, _, config = read_golden("10_full_default")

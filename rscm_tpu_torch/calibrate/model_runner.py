@@ -127,11 +127,12 @@ class CompiledModelRunner(ModelRunner):
     ``(B, D)`` batch of parameter vectors is one batched run whose swept
     parameters are the batch's columns.
 
-    ``stream`` and ``scan_unroll`` are kept for API parity.  ``stream=True``
-    picks the JAX package's windowed-carry program, whose values equal the
-    full program's; the port has no windowed program yet, so both values
-    run the year loop.  ``scan_unroll`` tunes ``lax.scan`` and has no
-    counterpart in an eager loop.
+    ``stream=True`` (the default) runs the streaming loop
+    (:meth:`~rscm_tpu_torch.core.model.program.ModelProgram.run_window_fn`),
+    which keeps only the rows a reader can still reach of every variable
+    that is not an output; ``False`` runs the full loop.  The values are the
+    same.  ``scan_unroll`` is kept for API parity: it tunes ``lax.scan`` in
+    the JAX package and has no counterpart in an eager loop.
     """
 
     def __init__(
@@ -221,7 +222,9 @@ class CompiledModelRunner(ModelRunner):
 
         def fn(theta):
             theta = self.as_theta(theta)
-            out = self.ensemble.run(self.params_pytree(theta), out_vars=out_vars)
+            out = self.ensemble.run(
+                self.params_pytree(theta), out_vars=out_vars, stream=self.stream
+            )
             if theta.dim() == 1:
                 return {name: out[name][0] for name in out_vars}
             return {name: out[name] for name in out_vars}

@@ -21,12 +21,20 @@ over years, with the member axis written out:
   components' ``pack_scan_state`` / ``unpack_scan_state`` hooks convert
   them at entry and exit, as in the TPU package.
 
-The streaming mode (``run_window_fn``) is not ported yet.
+The streaming mode (:meth:`ModelProgram.run_window_fn`) runs the same loop
+but keeps, for every variable not asked for, only the rows a reader can
+still reach (its :attr:`~ModelProgram.lookbacks` depth plus the current
+and next rows) and releases older ones, so memory grows with the emitted
+trajectories only.  The TPU package rolls fixed-size buffers through its
+``lax.scan`` carry for the same end; an eager loop can simply drop rows.
+Every read is the same operation on the same row, so the values equal the
+full loop's bit for bit.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+import functools
+from typing import Dict, Sequence
 
 import numpy as np
 import torch
@@ -35,6 +43,7 @@ from ..component import SolveContext, state_to_host, state_to_tensors
 from ..state import StateValue, Trajectory, make_window
 from ..timeseries import VariableType
 from .graph import NullComponent
+from ...utils.target import resolve_device
 from .input_state import InputState
 from .runtime import prepare_inputs
 
@@ -42,12 +51,16 @@ __all__ = ["ModelProgram"]
 
 
 class ModelProgram:
-    """The batched year loop of a built model on one device and dtype."""
+    """The batched year loop of a built model on one device and dtype.
 
-    def __init__(self, model, dtype=torch.float64, device="cpu"):
+    ``device`` defaults to the CUDA card and raises when there is none
+    (:func:`~rscm_tpu_torch.utils.target.resolve_device`).
+    """
+
+    def __init__(self, model, dtype=torch.float64, device=None):
         self.model = model
         self.dtype = dtype
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.exec_nodes = [
             node
             for node in model.exec_order
@@ -167,20 +180,11 @@ class ModelProgram:
             return float(dts[0])
         return None
 
-    def run_fn(self, endo, exo, params, internals, start_idx: int = 0):
-        """Run the loop from ``start_idx`` to the end of the axis.
-
-        ``endo`` maps each endogenous name to its ``(n_steps, B, n_regions)``
-        initial trajectory (rows up to ``start_idx`` are read, the rest are
-        replaced); ``exo`` maps each exogenous name to ``(n_steps,
-        n_regions)``; ``params`` is ``{node: {name: float | (B,) tensor}}``;
-        ``internals`` the host-layout internal states.  Returns ``(endo,
-        internals)`` after the final step, ``endo`` as new ``(n_steps, B,
-        n_regions)`` tensors.
-        """
-        if self.n_steps - 1 - start_idx <= 0:
-            return endo, internals
-        endo = {name: Trajectory.from_tensor(values) for name, values in endo.items()}
+    def _loop(self, endo, exo, params, internals, start_idx, release=None):
+        """Solve every step from ``start_idx``; ``endo`` maps names to
+        :class:`Trajectory` objects updated in place.  ``release`` maps
+        names to lookback depths: after step ``idx`` such a trajectory drops
+        its row ``idx - depth``, which no later step reads."""
         internals = self._pack_internals(internals, start_idx)
         for idx in range(start_idx, self.n_steps - 1):
             ctx = SolveContext(
@@ -191,9 +195,126 @@ class ModelProgram:
                 scan_mode=True,
             )
             self._solve_all_nodes(endo, exo, internals, ctx, params)
+            for name, depth in (release or {}).items():
+                if idx - depth >= 0:
+                    endo[name].release(idx - depth)
+        return self._unpack_internals(internals, self.n_steps - 1)
+
+    def run_fn(self, endo, exo, params, internals, start_idx: int = 0):
+        """Run the loop from ``start_idx`` to the end of the axis.
+
+        ``endo`` maps each endogenous name to its ``(n_steps, B, n_regions)``
+        initial trajectory (rows up to ``start_idx`` are read, the rest are
+        replaced); ``exo`` maps each exogenous name to ``(n_steps,
+        n_regions)`` (shared) or ``(n_steps, B, n_regions)`` (one series per
+        member); ``params`` is ``{node: {name: float | (B,) tensor}}``;
+        ``internals`` the host-layout internal states.  Returns ``(endo,
+        internals)`` after the final step, ``endo`` as new ``(n_steps, B,
+        n_regions)`` tensors.
+        """
+        if self.n_steps - 1 - start_idx <= 0:
+            return endo, internals
+        endo = {name: Trajectory.from_tensor(values) for name, values in endo.items()}
+        internals = self._loop(endo, exo, params, internals, start_idx)
         # one variable at a time, each trajectory's rows dropped once stacked
         endo = {name: endo.pop(name).stack() for name in list(endo)}
-        return endo, self._unpack_internals(internals, self.n_steps - 1)
+        return endo, internals
+
+    # -- streaming ------------------------------------------------------------
+
+    @functools.cached_property
+    def lookbacks(self) -> Dict[str, int]:
+        """Deepest lookback any component reads, per endogenous variable
+        (``Component.input_lookback``; 1 is ``previous()``)."""
+        lb = {name: 1 for name in self.endo_names}
+        for node in self.exec_nodes:
+            component = self.model.graph.nodes[node]
+            read_specs, _ = self.model._plan[node]
+            get_lb = getattr(component, "input_lookback", None)
+            for spec in read_specs:
+                if spec.var_name in lb:
+                    depth = int(get_lb(spec.var_name)) if get_lb is not None else 1
+                    lb[spec.var_name] = max(lb[spec.var_name], depth)
+        return lb
+
+    def _host_rows(self, name: str) -> torch.Tensor:
+        """A variable's stored ``(n_steps, g)`` values on the device."""
+        return self._tensor(self.model.collection.get_data(name)._values)
+
+    def gather_endo_window(self, batch: int, start_idx: int = 0) -> Dict[str, torch.Tensor]:
+        """The rows the streaming loop starts from: for each endogenous
+        variable the stored rows ``start_idx - L .. start_idx + 1`` (``L``
+        its lookback, indices clamped to the axis), broadcast to ``(L + 2,
+        batch, g)`` as views of the shared data."""
+        out = {}
+        for name in self.endo_names:
+            host = self._host_rows(name)
+            rows = [
+                min(max(start_idx - self.lookbacks[name] + k, 0), self.n_steps - 1)
+                for k in range(self.lookbacks[name] + 2)
+            ]
+            out[name] = host[rows][:, None].expand(-1, batch, -1)
+        return out
+
+    def run_window_fn(
+        self,
+        endo_bufs,
+        exo,
+        params,
+        internals,
+        out_vars: Sequence[str],
+        start_idx: int = 0,
+    ):
+        """The streaming run: returns ``({name: (n_steps, B, g)}, (window,
+        internals))`` for the endogenous variables named in ``out_vars``.
+
+        ``endo_bufs`` comes from :meth:`gather_endo_window`; ``exo``,
+        ``params`` and ``internals`` are as for :meth:`run_fn`.  Rows after
+        ``start_idx + 1`` start as the model's stored rows (NaN, or the
+        values the builder stored, which a row no component writes keeps);
+        rows up to ``start_idx`` are the stored history.  ``window`` holds
+        each variable's rows after the final step, laid out as
+        ``gather_endo_window(B, n_steps - 1)`` lays them out.
+        """
+        out_vars = tuple(out_vars)
+        unknown = [v for v in out_vars if v not in set(self.endo_names)]
+        if unknown:
+            raise KeyError(
+                f"run_window_fn: not endogenous variables: {unknown}; "
+                f"endogenous: {sorted(self.endo_names)}"
+            )
+        batch = next(iter(endo_bufs.values())).shape[1] if endo_bufs else 1
+        if self.n_steps - 1 - start_idx <= 0:
+            host = {name: self._host_rows(name) for name in out_vars}
+            return {
+                name: rows[:, None].expand(-1, batch, -1) for name, rows in host.items()
+            }, (endo_bufs, internals)
+
+        endo = {}
+        for name in self.endo_names:
+            host = self._host_rows(name)
+            rows = [row.expand(batch, -1) for row in host.unbind(0)]
+            lb = self.lookbacks[name]
+            for k, row in enumerate(endo_bufs[name].unbind(0)):
+                if start_idx - lb + k >= 0:
+                    rows[start_idx - lb + k] = row
+            endo[name] = Trajectory(rows)
+        release = {name: lb for name, lb in self.lookbacks.items() if name not in out_vars}
+        for name, depth in release.items():
+            for i in range(max(start_idx - depth, 0)):
+                endo[name].release(i)
+        internals = self._loop(endo, exo, params, internals, start_idx, release=release)
+
+        final = self.n_steps - 1
+        window = {
+            name: torch.stack([
+                endo[name][min(max(final - lb + k, 0), self.n_steps - 1)]
+                for k in range(lb + 2)
+            ])
+            for name, lb in self.lookbacks.items()
+        }
+        trajs = {name: endo.pop(name).stack() for name in out_vars}
+        return trajs, (window, internals)
 
     # -- host data marshalling ------------------------------------------------
 

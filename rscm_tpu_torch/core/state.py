@@ -65,8 +65,10 @@ class Trajectory:
     The loop replaces a row instead of writing into one ``(n_steps, members,
     n_regions)`` tensor in place, so a row that autograd saved for the
     backward is never modified, and a read touches one row instead of the
-    whole trajectory.  ``matrix`` (set by :meth:`aggregated`) is a read-side
-    grid aggregation applied to each row as it is read.
+    whole trajectory.  The streaming loop releases rows no reader can reach
+    any more (:meth:`release`); reading one raises.  ``matrix`` (set by
+    :meth:`aggregated`) is a read-side grid aggregation applied to each row
+    as it is read.
     """
 
     __slots__ = ("rows", "matrix")
@@ -82,7 +84,7 @@ class Trajectory:
 
     def aggregated(self, matrix) -> "Trajectory":
         """A view (for reading) whose rows are aggregated by ``matrix``."""
-        like = self.rows[0]
+        like = self.rows[-1]  # the last row is never released
         return Trajectory(
             self.rows, torch.as_tensor(matrix, dtype=like.dtype, device=like.device)
         )
@@ -92,15 +94,59 @@ class Trajectory:
 
     def __getitem__(self, index):
         row = self.rows[index]
+        if row is None:
+            raise IndexError(
+                f"row {index} of a streamed trajectory was released: a component "
+                "reads deeper than its input_lookback declares"
+            )
         return row if self.matrix is None else row @ self.matrix
 
     def __setitem__(self, index, row):
         self.rows[index] = row
 
+    def release(self, index):
+        """Drop row ``index`` (the streaming loop's memory bound)."""
+        self.rows[index] = None
+
+    @property
+    def shape(self):
+        """``(n_steps, members, n_regions)`` as read (after ``matrix``)."""
+        return (len(self.rows),) + tuple(self[-1].shape)
+
+    def column(self, region: int) -> "_Column":
+        """Region ``region`` of every row, read row by row."""
+        return _Column(self, region)
+
     def stack(self):
         """The whole trajectory as one ``(n_steps, members, n_regions)`` tensor."""
         out = torch.stack(self.rows)
         return out if self.matrix is None else out @ self.matrix
+
+
+class _Column:
+    """One region of a :class:`Trajectory`, indexed by step: what the traced
+    interpolation reads, without stacking the whole trajectory."""
+
+    __slots__ = ("traj", "region")
+
+    def __init__(self, traj, region):
+        self.traj = traj
+        self.region = region
+
+    def __getitem__(self, index):
+        return self.traj[index][..., self.region]
+
+    @property
+    def shape(self):
+        return self.traj.shape[:-1]
+
+    @property
+    def dtype(self):
+        return self.traj.rows[-1].dtype
+
+    @property
+    def device(self):
+        return self.traj.rows[-1].device
 
 
 def is_traced(x) -> bool:
@@ -461,10 +507,6 @@ class _WindowBase:
     def _n(self) -> int:
         return len(self.values)
 
-    def _series(self):
-        """The whole (aggregated) storage as one array or tensor."""
-        return self.values.stack() if isinstance(self.values, Trajectory) else self.values
-
     def _row(self, index):
         row = _read_row(self.values, index)
         if self.factor != 1.0:
@@ -495,9 +537,14 @@ class _WindowBase:
 
     def _interp_row(self, t):
         if self._traced:
-            values = self._series()
+            values = self.values
             cols = [
-                interpolate_traced(self.time_values, values[..., r], t, self.strategy)
+                interpolate_traced(
+                    self.time_values,
+                    values.column(r) if isinstance(values, Trajectory) else values[..., r],
+                    t,
+                    self.strategy,
+                )
                 for r in range(values.shape[-1])
             ]
             row = torch.stack(cols, dim=-1)
@@ -549,9 +596,9 @@ class ScalarWindow(_WindowBase):
         """
         if self._traced:
             idx = int(self.current_index)
-            first = self.values[0][..., 0]
+            current = self.values[idx][..., 0]
             rows = [
-                self.values[r][..., 0] if r >= 0 else torch.full_like(first, float("nan"))
+                self.values[r][..., 0] if r >= 0 else torch.full_like(current, float("nan"))
                 for r in range(idx + 1 - n, idx + 1)
             ]
             out = torch.stack(rows, dim=-1)

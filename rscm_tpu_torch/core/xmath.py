@@ -66,7 +66,22 @@ abs = _dispatch("abs")  # noqa: A001
 sign = _dispatch("sign")
 tanh = _dispatch("tanh")
 isnan = _dispatch("isnan")
-clip = _dispatch("clip", "clamp")
+
+
+def clip(x, lo, hi):
+    """``np.clip``; on tensors the bounds may be host scalars, host arrays
+    or tensors."""
+    if not _is_tensor(x, lo, hi):
+        return _host(np.clip(x, lo, hi))
+    ref = next(v for v in (x, lo, hi) if isinstance(v, torch.Tensor))
+    x = torch.as_tensor(x, dtype=ref.dtype, device=ref.device)
+    if any(b is not None and (isinstance(b, torch.Tensor) or np.ndim(b)) for b in (lo, hi)):
+        lo, hi = (
+            None if b is None else torch.as_tensor(b, dtype=x.dtype, device=x.device)
+            for b in (lo, hi)
+        )
+        return torch.clamp(x, lo, hi)
+    return torch.clamp(x, *(None if b is None else float(b) for b in (lo, hi)))
 take = _dispatch("take")
 
 
@@ -92,11 +107,14 @@ def minimum(a, b):
 
 
 def where(pred, on_true, on_false):
+    """``np.where``.  When only ``pred`` is a tensor, host-scalar branches
+    are taken in float64 (as the JAX package's weakly typed scalars are
+    under x64), not in torch's float32 default, which would round them."""
     if _is_tensor(pred, on_true, on_false):
         ref = next(x for x in (on_true, on_false, pred) if isinstance(x, torch.Tensor))
         if not isinstance(pred, torch.Tensor):
             pred = torch.as_tensor(pred, device=ref.device)
-        dtype = ref.dtype if ref.is_floating_point() else torch.get_default_dtype()
+        dtype = ref.dtype if ref.is_floating_point() else torch.float64
         for x in (on_true, on_false):
             if isinstance(x, torch.Tensor) and x.is_floating_point():
                 dtype = x.dtype
@@ -147,3 +165,69 @@ def dot(a, b):
         a, b = _pair(a, b)
         return (a * b).sum(-1)
     return np.dot(a, b)
+
+
+#: The TPU package's native-lowering exp (its ``exp`` routes through a
+#: minimax polynomial on the TPU only); here both are torch's ``exp``.
+exp_fast = exp
+
+
+def _operand(x):
+    """A torch operand: tensors as they are, host scalars as Python floats
+    (kept exact), host arrays as float64 tensors."""
+    if isinstance(x, torch.Tensor):
+        return x
+    if np.ndim(x) == 0:
+        return float(x)
+    return torch.as_tensor(np.asarray(x, dtype=np.float64))
+
+
+def power(a, b):
+    if _is_tensor(a, b):
+        return torch.pow(_operand(a), _operand(b))
+    return _host(np.power(a, b))
+
+
+def sum(x, axis=None):  # noqa: A001
+    """Sum over ``axis`` (all axes when None)."""
+    if _is_tensor(x):
+        return x.sum() if axis is None else x.sum(dim=axis)
+    return _host(np.sum(x, axis=axis))
+
+
+def tile(x, reps: int):
+    """``np.tile`` along the last axis: ``reps`` copies of ``x``'s last
+    axis, end to end (leading member axes are kept)."""
+    if _is_tensor(x):
+        x = x if x.dim() else x.reshape(1)
+        return x.repeat(*([1] * (x.dim() - 1)), int(reps))
+    return np.tile(x, int(reps))
+
+
+def repeat(x, repeats: int):
+    """``np.repeat`` along the last axis: each element ``repeats`` times
+    in a row (leading member axes are kept)."""
+    if _is_tensor(x):
+        x = x if x.dim() else x.reshape(1)
+        return x.repeat_interleave(int(repeats), dim=-1)
+    return np.repeat(x, int(repeats), axis=-1)
+
+
+def interp(x, xp, fp):
+    """``np.interp``: piecewise-linear through ``(xp, fp)`` at ``x``,
+    clamped to ``fp``'s end values outside ``[xp[0], xp[-1]]``."""
+    if not _is_tensor(x, xp, fp):
+        return _host(np.interp(x, xp, fp))
+    ref = next(v for v in (x, xp, fp) if isinstance(v, torch.Tensor))
+    x, xp, fp = (torch.as_tensor(v, dtype=ref.dtype, device=ref.device) for v in (x, xp, fp))
+    n = xp.shape[-1]
+    # segment k spans [xp[k], xp[k+1]]: the last k with xp[k] <= x
+    k = (torch.searchsorted(xp, x.contiguous(), right=True) - 1).clamp(0, n - 2)
+    x0, x1, f0, f1 = xp[k], xp[k + 1], fp[k], fp[k + 1]
+    inner = f0 + (x - x0) * ((f1 - f0) / (x1 - x0))
+    return torch.where(x <= xp[0], fp[0], torch.where(x >= xp[-1], fp[-1], inner))
+
+
+def select(pred, on_true, on_false):
+    """Branch-free select usable in both modes (alias of :func:`where`)."""
+    return where(pred, on_true, on_false)

@@ -10,9 +10,8 @@ MAGICC graph (:func:`build_magicc_model`) —
   the graph does not use)
 - Carbon: TerrestrialCarbon, OceanCarbon, CO2Budget
 - Climate: ClimateUDEB (4-box atmosphere + upwelling-diffusion ocean)
-
-Not ported yet: the modules beyond the reference (Permafrost,
-SeaLevelRise).
+- Beyond the reference: Permafrost (module_12) and SeaLevelRise
+  (module_14), the graph's optional branches
 """
 
 from .forcing.ghg import ForcingMethod, GhgForcing, GhgForcingBuilder
@@ -29,6 +28,13 @@ from .forcing.aerosol_indirect import AerosolIndirect, AerosolIndirectBuilder
 from .carbon.terrestrial import TerrestrialCarbon, TerrestrialCarbonBuilder
 from .carbon.ocean import OceanCarbon, OceanCarbonBuilder
 from .carbon.budget import CO2Budget, CO2BudgetBuilder
+from .carbon.permafrost import (
+    CH4ChemistryWithPermafrost,
+    CO2BudgetWithPermafrost,
+    Permafrost,
+    PermafrostBuilder,
+)
+from .slr import SeaLevelRise, SeaLevelRiseBuilder
 from .climate.udeb import ClimateUDEB, ClimateUDEBBuilder
 
 __all__ = [
@@ -38,8 +44,10 @@ __all__ = [
     "AerosolIndirectBuilder",
     "CH4Chemistry",
     "CH4ChemistryBuilder",
+    "CH4ChemistryWithPermafrost",
     "CO2Budget",
     "CO2BudgetBuilder",
+    "CO2BudgetWithPermafrost",
     "ClimateUDEB",
     "ClimateUDEBBuilder",
     "ForcingMethod",
@@ -54,6 +62,10 @@ __all__ = [
     "OceanCarbonBuilder",
     "OzoneForcing",
     "OzoneForcingBuilder",
+    "Permafrost",
+    "PermafrostBuilder",
+    "SeaLevelRise",
+    "SeaLevelRiseBuilder",
     "TerrestrialCarbon",
     "TerrestrialCarbonBuilder",
 ]

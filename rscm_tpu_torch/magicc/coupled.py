@@ -5,9 +5,9 @@ Ten components — CH4/N2O chemistry, GHG + ozone + aerosol forcing, the
 2x50-layer upwelling-diffusion climate (ClimateUDEB), terrestrial + ocean
 carbon, and the CO2 budget closure — wired into one emissions-driven graph
 (the same wiring the reference's crates compose, e.g.
-``crates/rscm-magicc/src/{chemistry,forcing,carbon,climate}``).  Port of
-``rscm_tpu/magicc/coupled.py``; the permafrost and sea-level branches
-(modules beyond the reference) are not ported yet and raise.
+``crates/rscm-magicc/src/{chemistry,forcing,carbon,climate}``), with the
+optional permafrost and sea-level modules beyond the reference.  Port of
+``rscm_tpu/magicc/coupled.py``.
 """
 
 from __future__ import annotations
@@ -100,25 +100,30 @@ def idealised_emissions(years: np.ndarray) -> dict:
     }
 
 
-#: where the branches this port does not have yet are queued
-_NOT_PORTED = (
-    "{} is not ported to rscm_tpu_torch yet (ROADMAP A.7: the modules "
-    "beyond the reference, carbon/permafrost.py and slr.py)"
+_PERMAFROST_VARS = (
+    ("Emissions|CO2|Permafrost", "GtC/yr"),
+    ("Emissions|CH4|Permafrost", "Mt CH4/yr"),
+    ("Permafrost|Thawed Area Fraction", "1"),
+    ("Permafrost|Total Pool", "GtC"),
 )
 
-
-def _check_branches(include_permafrost: bool, include_slr: bool):
-    if include_permafrost:
-        raise NotImplementedError(_NOT_PORTED.format("include_permafrost"))
-    if include_slr:
-        raise NotImplementedError(_NOT_PORTED.format("include_slr"))
+_SLR_VARS = (
+    ("Sea Level Rise", "mm"),
+    ("Sea Level Rise|Thermal Expansion", "mm"),
+    ("Sea Level Rise|Glaciers", "mm"),
+    ("Sea Level Rise|Greenland|SMB", "mm"),
+    ("Sea Level Rise|Greenland|SID", "mm"),
+    ("Sea Level Rise|Antarctica|SMB", "mm"),
+    ("Sea Level Rise|Antarctica|SID", "mm"),
+    ("Sea Level Rise|Land Water", "mm"),
+    ("Sea Level Rise|Semi-Empirical", "mm"),
+)
 
 
 def build_magicc_schema(
     emissions: dict, include_permafrost: bool = False,
     include_slr: bool = False,
 ) -> VariableSchema:
-    _check_branches(include_permafrost, include_slr)
     schema = VariableSchema()
     for name, (_, unit) in emissions.items():
         schema.add_variable(name, unit)
@@ -130,6 +135,12 @@ def build_magicc_schema(
     schema.add_aggregate(
         "Effective Radiative Forcing", "W/m^2", "Sum", list(FORCER_VARIABLES)
     )
+    if include_permafrost:
+        for name, unit in _PERMAFROST_VARS:
+            schema.add_variable(name, unit)
+    if include_slr:
+        for name, unit in _SLR_VARS:
+            schema.add_variable(name, unit)
     return schema
 
 
@@ -148,10 +159,17 @@ def build_magicc_model(years=None, ecs: float = 3.0, emissions: dict = None,
     "bfloat16"}``.  At the default axis (1850-2100) the window is 3024
     months, so the ``"auto"`` engine resolves to exp-sum.
 
-    ``include_permafrost`` and ``include_slr`` (the TPU package's branches
-    for the modules beyond the reference) raise ``NotImplementedError``:
-    those modules are not ported yet; ``permafrost_params`` and
-    ``slr_params`` belong to them.
+    ``include_permafrost=True`` adds the permafrost carbon feedback
+    beyond the reference (module_12): the :class:`Permafrost` component
+    plus budget/chemistry variants that fold its CO2 and CH4 release into
+    the same closures MAGICC7 uses (``permafrost_params`` sets its
+    parameters).
+
+    ``include_slr=True`` adds the sea-level module beyond the reference
+    (module_14): :class:`SeaLevelRise` diagnoses all seven contributors
+    from the climate state each year (no feedback into the rest of the
+    graph, matching MAGICC7's end-of-step ``sealevel_calc``; ``slr_params``
+    sets its parameters).
 
     ``chemistry_pathways`` selects the MAGICC7-mode CH4/N2O schemes: pass
     observed concentration records on the model time axis (``{"ch4": (n,),
@@ -166,25 +184,31 @@ def build_magicc_model(years=None, ecs: float = 3.0, emissions: dict = None,
         AerosolDirect,
         AerosolIndirect,
         CH4Chemistry,
+        CH4ChemistryWithPermafrost,
         ClimateUDEB,
         CO2Budget,
+        CO2BudgetWithPermafrost,
         GhgForcing,
         N2OChemistry,
         OceanCarbon,
         OzoneForcing,
+        Permafrost,
+        SeaLevelRise,
         TerrestrialCarbon,
     )
 
-    _check_branches(include_permafrost, include_slr)
     if years is None:
         years = np.arange(1850.0, 2101.0)
     years = np.asarray(years, dtype=np.float64)
     if emissions is None:
         emissions = idealised_emissions(years)
 
+    ch4_cls = CH4ChemistryWithPermafrost if include_permafrost else CH4Chemistry
+    budget_cls = CO2BudgetWithPermafrost if include_permafrost else CO2Budget
+
     if chemistry_pathways is not None:
         cp = chemistry_pathways
-        ch4_component = CH4Chemistry.magicc7(
+        ch4_component = ch4_cls.magicc7(
             years,
             cp["ch4"],
             emissions["Emissions|CH4"][0],
@@ -197,7 +221,7 @@ def build_magicc_model(years=None, ecs: float = 3.0, emissions: dict = None,
             years, cp["n2o"], emissions["Emissions|N2O"][0]
         )
     else:
-        ch4_component = CH4Chemistry(
+        ch4_component = ch4_cls(
             ch4_pi=INITIAL_VALUES["Atmospheric Concentration|CH4"]
         )
         n2o_component = N2OChemistry(
@@ -208,7 +232,19 @@ def build_magicc_model(years=None, ecs: float = 3.0, emissions: dict = None,
     builder = (
         ModelBuilder()
         .with_time_axis(time_axis)
-        .with_schema(build_magicc_schema(emissions))
+        .with_schema(
+            build_magicc_schema(emissions, include_permafrost, include_slr)
+        )
+    )
+    if include_permafrost:
+        # Inserted FIRST: insertion order drives variable-source
+        # classification (reference semantics).  Permafrost's temperature
+        # read becomes a lagged index-N read (this year's thaw from the
+        # temperature state entering the year), while the budget/chemistry
+        # components added below read its emissions same-step at N+1.
+        builder = builder.with_component(Permafrost(**(permafrost_params or {})))
+    builder = (
+        builder
         .with_component(ch4_component)
         .with_component(n2o_component)
         .with_component(
@@ -235,8 +271,20 @@ def build_magicc_model(years=None, ecs: float = 3.0, emissions: dict = None,
                 }
             )
         )
-        .with_component(CO2Budget())
+        .with_component(budget_cls())
     )
+    if include_slr:
+        # Inserted after ClimateUDEB so the N+1 temperature / OHC of the
+        # current step feed it (MAGICC7 calls sealevel_calc at the end of
+        # each timestep).  Nothing reads its outputs — pure diagnostics.
+        builder = builder.with_component(
+            SeaLevelRise(
+                **{
+                    "max_history_steps": len(years) + 1,
+                    **(slr_params or {}),
+                }
+            )
+        )
     for name, (values, unit) in emissions.items():
         builder = builder.with_exogenous_variable(
             name,

@@ -1,5 +1,5 @@
 """Batched ensemble execution."""
 
-from .ensemble import EnsembleRunner
+from .ensemble import EnsembleRunner, stack_params
 
-__all__ = ["EnsembleRunner"]
+__all__ = ["EnsembleRunner", "stack_params"]

@@ -6,13 +6,17 @@ Port of ``rscm_tpu/parallel/ensemble.py``.  Typical use::
     runner = EnsembleRunner(model)                       # on the CUDA card
     params = runner.batched_params({"ClimateUDEB.ecs": ecs})  # (B,) sweep
     out = runner.run(params, out_vars=["Surface Temperature"])
+    # one emission pathway per member: (B, n_steps, g)
+    out = runner.run(params, exo={"Emissions|CO2|Anthropogenic": scenarios})
 
 ``params`` follows the program's parameter dict —
 ``{node_id: {param_name: value}}`` — where a swept parameter is a ``(B,)``
-array or tensor and every other one a scalar.  Scalars are baked into the
-run as host floats, so only the swept parameters occupy batch-sized device
-memory.  Sharding the batch over several cards and batched exogenous
-scenarios are not ported yet.
+array or tensor and every other one a scalar (:func:`stack_params` builds
+one from per-member dicts).  Scalars are baked into the run as host floats,
+so only the swept parameters and batched scenarios occupy batch-sized
+device memory.  A run that names ``out_vars`` streams by default
+(:meth:`ModelProgram.run_window_fn`).  Sharding the batch over several
+cards is not ported yet.
 """
 
 from __future__ import annotations
@@ -26,7 +30,25 @@ import torch
 from rscm_tpu_torch.core.model.program import ModelProgram
 from rscm_tpu_torch.utils.target import resolve_device
 
-__all__ = ["EnsembleRunner"]
+__all__ = ["EnsembleRunner", "stack_params"]
+
+
+def stack_params(member_params: list) -> dict:
+    """Stack a list of per-member parameter dicts into ``(B,)`` leaves
+    (tensors when any member's leaf is one, numpy arrays otherwise)."""
+    out: dict = {}
+    for nk, node in member_params[0].items():
+        out[nk] = {}
+        for pn in node:
+            leaves = [m[nk][pn] for m in member_params]
+            if any(isinstance(v, torch.Tensor) for v in leaves):
+                ref = next(v for v in leaves if isinstance(v, torch.Tensor))
+                out[nk][pn] = torch.stack(
+                    [torch.as_tensor(v, dtype=ref.dtype, device=ref.device) for v in leaves]
+                )
+            else:
+                out[nk][pn] = np.stack([np.asarray(v) for v in leaves])
+    return out
 
 
 class EnsembleRunner:
@@ -41,7 +63,7 @@ class EnsembleRunner:
         self.device = resolve_device(device)
         self.dtype = dtype
         self.program = ModelProgram(model, dtype=dtype, device=self.device)
-        self._inputs = None
+        self._inputs = None  # {(stream, start_idx): device inputs}, built on first use
         self._inputs_version = self._model_version()
 
     def _model_version(self):
@@ -116,9 +138,56 @@ class EnsembleRunner:
                     baked.setdefault(nk, {})[pn] = float(v)
         return batched, baked
 
-    def run(self, params: dict, out_vars: Optional[list] = None, start_idx: int = 0):
+    def _batched_exo(self, exo):
+        """``exo`` on the device: a ``(B, n_steps, g)`` scenario batch as an
+        ``(n_steps, B, g)`` view (no copy), a ``(n_steps, g)`` series as it
+        is."""
+        p = self.program
+        out = {}
+        for name, values in (exo or {}).items():
+            if name not in p.exo_names:
+                raise KeyError(
+                    f"EnsembleRunner.run: {name!r} is not an exogenous variable; "
+                    f"exogenous: {sorted(p.exo_names)}"
+                )
+            t = p._tensor(values)
+            if t.dim() == 3:
+                if t.shape[1] != p.n_steps:
+                    raise ValueError(
+                        f"EnsembleRunner.run: exo[{name!r}] has {t.shape[1]} steps, "
+                        f"the time axis {p.n_steps}"
+                    )
+                t = t.transpose(0, 1)
+            out[name] = t
+        return out
+
+    def run(
+        self,
+        params: dict,
+        exo: Optional[dict] = None,
+        mesh=None,
+        out_vars: Optional[list] = None,
+        start_idx: int = 0,
+        stream: Optional[bool] = None,
+    ):
         """Run the ensemble; returns ``{var_name: (B, n_steps, n_regions)}``
-        tensors on the runner's device (``out_vars`` restricts which)."""
+        tensors on the runner's device.
+
+        ``exo`` optionally gives batched exogenous data ``{name: (B, n_steps,
+        g)}`` (one scenario per member, numpy or tensor) or shared ``(n_steps,
+        g)`` data in place of the model's; the batch may come from ``exo``
+        alone.  ``out_vars`` restricts which trajectories come back.
+        ``stream`` selects the streaming loop, which keeps only the rows a
+        reader can still reach of every variable not in ``out_vars``; it
+        defaults to ``out_vars is not None``, and the values are the same
+        either way.  ``mesh`` (sharding the batch over several cards) is not
+        ported and raises.
+        """
+        if mesh is not None:
+            raise NotImplementedError(
+                "EnsembleRunner.run(mesh=...): splitting the batch over several "
+                "cards is not ported yet (ROADMAP A.6)"
+            )
         if start_idx == 0 and self.model.time_index > 0:
             warnings.warn(
                 "EnsembleRunner.run(start_idx=0) on a model that has been run "
@@ -128,15 +197,23 @@ class EnsembleRunner:
                 stacklevel=2,
             )
         p = self.program
+        if stream is None:
+            stream = out_vars is not None
         batched, baked = self._split_params(params)
-        if not batched:
+        batch_exo = self._batched_exo(exo)
+        sizes = {int(np.shape(v)[0]) for node in batched.values() for v in node.values()}
+        sizes |= {int(v.shape[1]) for v in batch_exo.values() if v.dim() == 3}
+        if not sizes:
             raise ValueError(
                 "EnsembleRunner.run: nothing is batched — provide (B,) parameters "
-                "(batched_params)"
+                "(batched_params/stack_params) and/or (B, n_steps, g) exogenous "
+                "scenarios"
             )
-        sizes = {int(np.shape(v)[0]) for node in batched.values() for v in node.values()}
         if len(sizes) != 1:
-            raise ValueError(f"EnsembleRunner.run: batched parameters disagree on B: {sizes}")
+            raise ValueError(
+                f"EnsembleRunner.run: batched parameters and scenarios disagree on B: "
+                f"{sorted(sizes)}"
+            )
         (batch,) = sizes
 
         merged = {nk: dict(node) for nk, node in baked.items()}
@@ -146,13 +223,24 @@ class EnsembleRunner:
                     v, dtype=self.dtype, device=self.device
                 )
 
-        # shared model inputs, moved to the device once and reused until the
-        # model's state changes
+        # shared model inputs, moved to the device once per (mode, start)
+        # and reused until the model's state changes
         if self._model_version() != self._inputs_version:
             self.refresh_inputs()
+        key = (bool(stream), int(start_idx))
         if self._inputs is None:
-            self._inputs = (p.gather_exo(), p.gather_internals())
-        exo, internals = self._inputs
-        endo, _ = p.run_fn(p.gather_endo(batch), exo, merged, internals, start_idx=start_idx)
-        names = p.endo_names if out_vars is None else [n for n in p.endo_names if n in out_vars]
-        return {name: endo[name].transpose(0, 1) for name in names}
+            self._inputs = {}
+        if key not in self._inputs:
+            endo = p.gather_endo_window(1, start_idx) if stream else p.gather_endo(1)
+            self._inputs[key] = (endo, p.gather_exo(), p.gather_internals())
+        endo, exo_in, internals = self._inputs[key]
+        endo = {name: v.expand(-1, batch, -1) for name, v in endo.items()}
+        exo_in = {**exo_in, **batch_exo}
+        if stream:
+            names = list(out_vars) if out_vars is not None else list(p.endo_names)
+            out, _ = p.run_window_fn(endo, exo_in, merged, internals, names,
+                                     start_idx=start_idx)
+        else:
+            out, _ = p.run_fn(endo, exo_in, merged, internals, start_idx=start_idx)
+            names = p.endo_names if out_vars is None else [n for n in p.endo_names if n in out_vars]
+        return {name: out[name].transpose(0, 1) for name in names}

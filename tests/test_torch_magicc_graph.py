@@ -13,7 +13,8 @@
   engine, a bfloat16 ring history, the OLBL forcing method, 30 layers)
   carried across
   with ``static_params_from_jax`` / ``apply_static_params``; the bfloat16
-  history is held at the component test's 1e-5.
+  history is held at the component test's 1e-5;
+- the permafrost and sea-level branches, each alone, at one member.
 """
 
 import numpy as np
@@ -151,6 +152,18 @@ def test_static_params_carry_across():
 
 
 def test_unported_branches_raise():
+    """The branches for the modules beyond the reference (which raised
+    before ``Permafrost`` and ``SeaLevelRise`` were ported) build, each
+    alone, and match the JAX package on every variable at 1e-9
+    (``tests/test_torch_permafrost.py`` runs both together)."""
     for flag in ("include_permafrost", "include_slr"):
-        with pytest.raises(NotImplementedError, match="ROADMAP A.7"):
-            build_magicc_model(years=YEARS[:5], **{flag: True})
+        model = build_magicc_model(years=YEARS[:11], **{flag: True})
+        model.run(device="cpu")
+        ref = jax_build(years=YEARS[:11], **{flag: True})
+        ref.run()
+        got, want = trajectories(model), trajectories(ref)
+        assert set(got) == set(want)
+        assert len(got) > len(trajectories(build_magicc_model(years=YEARS[:11])))
+        for name, values in got.items():
+            np.testing.assert_allclose(values, want[name], rtol=1e-9, atol=1e-12,
+                                       err_msg=f"{flag}: {name}")
