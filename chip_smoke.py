@@ -77,7 +77,20 @@ Phases, each printed with its elapsed time:
               the first 101 years 16 streamed members equal to the full loop
               bit for bit, the calls a year and a profile; the permafrost
               and sea-level solves' device time alone;
-10. host -- the step-by-step executor;
+10. host -- the step-by-step executor (the flagship at one member against the
+              year loop, ten ClimateUDEB ``step()``s), then the host surface:
+              the MAGICC graph checkpointed after ten ``step()``s and resumed
+              in a fresh model on the year loop (10 and 240 launches of each
+              kernel; bit-equal to stepping on without a checkpoint, within
+              1e-10 of the CPU), and a 100,000-member ensemble resumed from
+              the same checkpoint (240 launches each; member 0 within 1e-10
+              of the single member); the full-options graph rebuilt from
+              its TOML, both running 10,000 members bit-equal (250 launches
+              each a run); the two-layer model from the layered configs
+              with its ERF from a scenario CSV, 100,000 members x 351 years
+              bit-equal to the model built by hand (no launches); and
+              ``diagnose_nans`` on the card naming the year, reader and
+              output of a NaN put into an exogenous input;
 11. calibrate -- the MAGICC synthetic-truth calibration (``magicc_calibration``,
               1850-2100, eight parameters, float64, bfloat16 flux history)
               through the port's entry points, with both launch counts read
@@ -170,6 +183,17 @@ FULLMAGICC_OUT = ["Surface Temperature", "Sea Level Rise", "Emissions|CO2|Permaf
 CONSERVATION_GTC = 1e-8
 #: ClimateUDEB through step(): the years it steps
 HOST_UDEB_STEPS = 10
+#: the host surface (the host phase's later runs): the steps taken before the
+#: checkpoint, the members of the ensemble resumed from it, of the TOML
+#: rebuild (full-options graph, 1850-2100) and of the layered-config run
+#: (1750-2100, its sweep's seed); the diagnose_nans run's last year, the
+#: exogenous input that gets a NaN, and the year it gets it
+HOST = {"checkpoint_steps": 10, "resume_members": 100_000, "toml_members": 10_000,
+        "config_members": 100_000, "config_seed": 5, "nan_last_year": 1875.0,
+        "nan_input": "Emissions|CH4", "nan_year": 1860.0}
+#: the layered configs the host phase builds the two-layer model from
+TWO_LAYER_LAYERS = ("configs/two-layer/defaults.toml",
+                    "configs/two-layer/tuning/high-sensitivity.toml")
 #: the calibration path (bench.py:666-760, magicc_calibration at 1850-2100,
 #: eight parameters): walkers, walkers re-run through the plain engines, the
 #: finite-difference step (of each prior's span), the axis of the gradient,
@@ -220,43 +244,6 @@ def check_close(what, got, want, rtol, atol):
     if bool(bad.any()) or not bool(torch.isfinite(got).all()):
         raise AssertionError(f"{what}: kernel and plain version disagree (max abs err {max_abs:.3e})")
     return max_abs
-
-
-def count_flops(fn, *args):
-    """Floating-point arithmetic operations ``fn`` performs, as ``(other,
-    divisions)``: elementwise add/sub/mul/min/max counted once per output
-    element; a division by a tensor (or a reciprocal) counted apart, since
-    the kernel divides there, while a division by a host scalar is a
-    multiplication by its reciprocal in the kernel (and in PyTorch's CUDA
-    division) and counts as other.  Negations and absolute values are not
-    counted: in the kernels' SASS they are operand modifiers of the DADD,
-    DMUL or DSETP that uses them."""
-    import torch
-    from torch.utils._python_dispatch import TorchDispatchMode
-
-    arithmetic = {
-        "add", "sub", "mul", "div", "maximum", "minimum", "clamp", "reciprocal", "rsub",
-    }
-
-    class Count(TorchDispatchMode):
-        other = 0
-        divisions = 0
-
-        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-            out = func(*args, **(kwargs or {}))
-            name = func.overloadpacket.__name__
-            if name in arithmetic and isinstance(out, torch.Tensor) and out.is_floating_point():
-                divides = name == "reciprocal" or (
-                    name == "div" and isinstance(args[1], torch.Tensor))
-                if divides:
-                    Count.divisions += out.numel()
-                else:
-                    Count.other += out.numel()
-            return out
-
-    with Count():
-        fn(*args)
-    return Count.other, Count.divisions
 
 
 #: one IEEE division and one multiplication per dtype, built with the kernels'
@@ -1433,14 +1420,305 @@ def phase_host_executor(smi, golden_base):
             check_close(f"ClimateUDEB {name}: step() on the card vs {what}", got, want,
                         1e-10, 1e-10)
 
+    # the host surface: checkpoints, TOML, layered configs, diagnostics
+    for what, run in (("checkpoint and resume", host_checkpoint_resume),
+                      ("TOML rebuild", host_toml_rebuild),
+                      ("layered config and scenario input", host_layered_config),
+                      ("diagnose_nans", host_diagnose_nans),
+                      ("cost_analysis", lambda smi: host_cost_analysis(smi, golden_base))):
+        t = time.perf_counter()
+        run(smi)
+        log(f"  host surface, {what}: {time.perf_counter() - t:.3f} s of wall on {smi}")
+
+
+def reset_launches():
+    from rscm_tpu_torch.ops.lamcalc_kernel import lamcalc
+    from rscm_tpu_torch.ops.udeb_month import udeb_year
+
+    udeb_year.launches = 0
+    lamcalc.launches = 0
+
+
+def read_launches():
+    from rscm_tpu_torch.ops.lamcalc_kernel import lamcalc
+    from rscm_tpu_torch.ops.udeb_month import udeb_year
+
+    return {"udeb_year": udeb_year.launches, "lamcalc": lamcalc.launches}
+
+
+def expect_launches(what, n):
+    launches = read_launches()
+    log(f"  {what}: launches {launches}")
+    if launches != {"udeb_year": n, "lamcalc": n}:
+        raise AssertionError(f"{what}: launches {launches}, expected {n} each")
+
+
+def trajectories(model):
+    import numpy as np
+    import torch
+
+    return {item.name: torch.as_tensor(np.asarray(item.data.values()))
+            for item in model.collection}
+
+
+def host_checkpoint_resume(smi):
+    """The ten-component MAGICC graph, one member, 1850-2100, on the card:
+    ten ``step()``s, a checkpoint, a fresh model restored from it and run on
+    the year loop; then an ensemble resumed from the same checkpoint."""
+    import numpy as np
+    import torch
+
+    from rscm_tpu_torch.magicc.coupled import build_magicc_model
+    from rscm_tpu_torch.parallel import EnsembleRunner
+
+    k = HOST["checkpoint_steps"]
+    a = build_magicc_model()
+    n_steps = len(a.time_axis) - 1
+    reset_launches()
+    t = time.perf_counter()
+    for _ in range(k):
+        a.step()
+    torch.cuda.synchronize()
+    step_wall = time.perf_counter() - t
+    expect_launches(f"MAGICC, {k} step()s before the checkpoint", k)
+    t = time.perf_counter()
+    text = a.checkpoint()
+    saved = json.loads(text)
+    log(f"  checkpoint at index {a.time_index}: {len(text) / 1e6:.3f} MB of JSON in "
+        f"{time.perf_counter() - t:.3f} s; {k} steps took {step_wall:.3f} s on {smi}")
+
+    b = build_magicc_model()
+    b.restore(saved)
+    reset_launches()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    b.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    expect_launches(f"MAGICC, restored at index {k} and run on the year loop", n_steps - k)
+    log(f"  resumed run, 1 member x {n_steps - k} years on the card: {wall:.3f} s on {smi}")
+
+    straight = build_magicc_model()
+    for _ in range(k):
+        straight.step()
+    straight.run()
+    cpu = build_magicc_model()
+    for _ in range(k):
+        cpu.step(device="cpu")
+    cpu.run(device="cpu")
+    resumed, want, on_cpu = trajectories(b), trajectories(straight), trajectories(cpu)
+    differ = [name for name, got in resumed.items()
+              if not (torch.equal(torch.isnan(got), torch.isnan(want[name]))
+                      and torch.equal(got.nan_to_num(0.0), want[name].nan_to_num(0.0)))]
+    log(f"  resumed vs stepped on without a checkpoint: {len(resumed) - len(differ)} of "
+        f"{len(resumed)} trajectories bit-equal")
+    if differ:
+        raise AssertionError(f"resumed run not bit-equal in {differ}")
+    worst = 0.0
+    for name, got in resumed.items():
+        other = on_cpu[name]
+        ok = ~torch.isnan(other)
+        if not torch.equal(torch.isnan(got), ~ok):
+            raise AssertionError(f"resumed {name}: NaN where the CPU run has none, or not")
+        diff = (got[ok] - other[ok]).abs()
+        worst = max(worst, float(diff.max()) if diff.numel() else 0.0)
+        if bool((diff > 1e-10 + 1e-10 * other[ok].abs()).any()):
+            raise AssertionError(f"resumed {name}: off the CPU run by {float(diff.max()):.3e}")
+    log(f"  every resumed trajectory within {worst:.3e} of the CPU run (rtol 1e-10, "
+        f"atol 1e-10)")
+
+    # an ensemble from the same checkpoint: ECS swept as on the MAGICC path,
+    # member 0 at the model's own ECS
+    resumed_model = build_magicc_model()
+    resumed_model.restore(saved)
+    members = HOST["resume_members"]
+    ecs = magicc_sweep(members)["ClimateUDEB.ecs"]
+    udeb = next(c for c in resumed_model.graph.nodes if type(c).__name__ == "ClimateUDEB")
+    ecs[0] = udeb.ecs
+    runner = EnsembleRunner(resumed_model)
+    params = runner.batched_params({"ClimateUDEB.ecs": ecs})
+    reset_launches()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = runner.run(params, start_idx=k, out_vars=["Surface Temperature"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    expect_launches(f"ensemble resumed at index {k}, {members} members", n_steps - k)
+    log(f"  ensemble resumed from the checkpoint: {members} members x {n_steps - k} years in "
+        f"{wall:.3f} s, {members * (n_steps - k) / wall:.4e} member-years/s on {smi}")
+    first = out["Surface Temperature"][0].cpu()
+    check_close("resumed ensemble member 0 vs the resumed single-member run",
+                first[1:], resumed["Surface Temperature"][1:], 1e-10, 1e-10)
+    if not bool(torch.isfinite(out["Surface Temperature"][:, k + 1:]).all()):
+        raise AssertionError("resumed ensemble: non-finite temperatures")
+
+
+def host_toml_rebuild(smi):
+    """The full-options graph rebuilt from its own TOML; both models run the
+    same 10,000-member ensemble, bit-equal."""
+    import numpy as np
+    import torch
+
+    from rscm_tpu_torch.core import Model
+    from rscm_tpu_torch.magicc.coupled import build_magicc_model
+    from rscm_tpu_torch.parallel import EnsembleRunner
+
+    model = build_magicc_model(include_permafrost=True, include_slr=True)
+    t = time.perf_counter()
+    text = model.to_toml()
+    rebuilt = Model.from_toml(text)
+    log(f"  full-options graph through TOML ({len(text) / 1e6:.3f} MB) in "
+        f"{time.perf_counter() - t:.3f} s")
+    n_steps = len(model.time_axis) - 1
+    members = HOST["toml_members"]
+    rng = np.random.default_rng(FULLMAGICC["seed"])
+    sweep = {"ClimateUDEB.ecs": rng.uniform(1.8, 5.5, members),
+             "Permafrost.arctic_amplification": rng.uniform(1.5, 2.5, members)}
+    outs = []
+    for what, m in (("original", model), ("rebuilt", rebuilt)):
+        runner = EnsembleRunner(m)
+        params = runner.batched_params(sweep)
+        reset_launches()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        outs.append(runner.run(params, out_vars=["Surface Temperature", "Sea Level Rise"]))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        expect_launches(f"full-options graph, {what}, {members} members", n_steps)
+        log(f"  {what}: {members} members x {n_steps} years in {wall:.3f} s on {smi}")
+    for name, got in outs[1].items():
+        assert_bit_equal(f"rebuilt {name} vs the original", got, outs[0][name])
+
+
+def host_layered_config(smi):
+    """The two-layer model from the layered configs, its ERF from a scenario
+    CSV, against the same model built by hand: a 100,000-member ensemble,
+    bit-equal, no kernel."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        layered_config_run(smi, tmp)
+
+
+def layered_config_run(smi, tmp):
+    import numpy as np
+    import torch
+
+    from rscm_tpu_torch.components import TwoLayer
+    from rscm_tpu_torch.config import build_model, load_config_layers
+    from rscm_tpu_torch.core import ModelBuilder, TimeAxis, Timeseries
+    from rscm_tpu_torch.core.spatial import ScalarGrid
+    from rscm_tpu_torch.native.csv import native_loader
+    from rscm_tpu_torch.parallel import EnsembleRunner
+
+    years = np.arange(1750.0, 2101.0)
+    erf = np.concatenate([np.linspace(0.0, 0.5, 100), np.linspace(0.5, 2.7, 175),
+                          np.linspace(2.7, 4.5, 76)])
+    with open(os.path.join(tmp, "erf.csv"), "w") as f:
+        f.write("time,Effective Radiative Forcing\n")
+        f.writelines(f"{float(t)!r},{float(v)!r}\n" for t, v in zip(years, erf))
+    with open(os.path.join(tmp, "experiment.toml"), "w") as f:
+        f.write('[inputs."Effective Radiative Forcing"]\nfile = "erf.csv"\nunit = "W/m^2"\n')
+    t = time.perf_counter()
+    config = load_config_layers(*(os.path.join(HERE, p) for p in TWO_LAYER_LAYERS),
+                                os.path.join(tmp, "experiment.toml"))
+    from_config = build_model(config)
+    log(f"  layered config ({', '.join(TWO_LAYER_LAYERS)} + a scenario layer) built in "
+        f"{time.perf_counter() - t:.3f} s; the scenario CSV read by the "
+        f"{'native' if native_loader() else 'fallback Python'} loader")
+
+    params = config["components"]["climate"]["parameters"]
+    axis = TimeAxis.from_values(years)
+    by_hand = (
+        ModelBuilder()
+        .with_time_axis(axis)
+        .with_component(TwoLayer(**params))
+        .with_exogenous_variable("Effective Radiative Forcing",
+                                 Timeseries(erf[:, None], axis, ScalarGrid(), "W/m^2"))
+        .with_initial_values({"Surface Temperature": 0.0, "Deep Ocean Temperature": 0.0})
+        .build()
+    )
+    members = HOST["config_members"]
+    rng = np.random.default_rng(HOST["config_seed"])
+    sweep = {"TwoLayer.lambda0": rng.uniform(0.8, 1.8, members)}
+    outs = []
+    for what, m in (("from the layered config", from_config), ("built by hand", by_hand)):
+        runner = EnsembleRunner(m)
+        reset_launches()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        outs.append(runner.run(runner.batched_params(sweep), out_vars=["Surface Temperature",
+                                                                      "Deep Ocean Temperature"]))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        expect_launches(f"two-layer model {what}", 0)
+        log(f"  two-layer model {what}: {members} members x {len(years) - 1} years in "
+            f"{wall:.3f} s, {members * (len(years) - 1) / wall:.4e} member-years/s on {smi}")
+    for name, got in outs[0].items():
+        assert_bit_equal(f"two-layer {name}, layered config vs by hand", got, outs[1][name])
+    if not bool(torch.isfinite(outs[0]["Surface Temperature"]).all()):
+        raise AssertionError("layered-config run: non-finite temperatures")
+
+
+def host_diagnose_nans(smi):
+    """A NaN in one exogenous input of the MAGICC graph at a known year:
+    ``diagnose_nans`` on the card names that year, the first component that
+    reads the input and a variable that component writes."""
+    import numpy as np
+    import torch
+
+    from rscm_tpu_torch.magicc.coupled import build_magicc_model
+    from rscm_tpu_torch.utils.profiling import diagnose_nans
+
+    model = build_magicc_model(years=np.arange(1850.0, HOST["nan_last_year"] + 1.0))
+    data = model.collection.get_data(HOST["nan_input"])
+    data._values[int(HOST["nan_year"] - 1850.0)] = np.nan
+    data._recompute_latest()
+    reader = next(node for node in model.exec_order
+                  if any(spec.var_name == HOST["nan_input"] for spec in model._plan[node][0]))
+    reader_name = model.graph.nodes[reader].component_name
+    written = set(model._plan[reader][1])
+    t = time.perf_counter()
+    findings = diagnose_nans(model)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    log(f"  diagnose_nans on the card ({len(model.time_axis) - 1} steps) in {wall:.3f} s on "
+        f"{smi}: first finding {findings[0] if findings else None}, {len(findings)} in all")
+    first = findings[0] if findings else {}
+    if (first.get("time") != HOST["nan_year"] or first.get("component") != reader_name
+            or first.get("variable") not in written):
+        raise AssertionError(
+            f"diagnose_nans: expected {HOST['nan_year']}, {reader_name} writing one of "
+            f"{sorted(written)}; found {first}")
+
+
+def host_cost_analysis(smi, golden_base):
+    """``cost_analysis`` of ClimateUDEB's year loop on the card: the
+    dispatched operators plus each kernel launch's work from its wrapper's
+    formula (the roofline bound's)."""
+    import numpy as np
+
+    from rscm_tpu_torch.utils.profiling import cost_analysis
+
+    years = np.arange(1850.0, 1851.0 + HOST_UDEB_STEPS)
+    model = build_udeb_model(years, ramp_forcing_1pct(years, golden_base["rf_2xco2"], 1850.0),
+                             golden_base)
+    reset_launches()
+    costs = cost_analysis(model)
+    expect_launches(f"cost_analysis of ClimateUDEB, 1 member x {HOST_UDEB_STEPS} years",
+                    HOST_UDEB_STEPS)
+    log(f"  cost_analysis on the card: {costs}")
+    if costs["kernel launches"] != {"udeb_year": HOST_UDEB_STEPS, "lamcalc": HOST_UDEB_STEPS}:
+        raise AssertionError(f"cost_analysis saw launches {costs['kernel launches']}")
+
 
 def phase_timing(smi, runner, params, launches, n_steps, errs, div_instr):
     import torch
 
     from rscm_tpu_torch.ops.lamcalc_kernel import (
-        lamcalc, lamcalc_plain, lamcalc_plain_with_iterations,
+        lamcalc, lamcalc_plain, lamcalc_plain_with_iterations, lamcalc_work,
     )
-    from rscm_tpu_torch.ops.udeb_month import udeb_year, udeb_year_plain
+    from rscm_tpu_torch.ops.udeb_month import udeb_year, udeb_year_plain, udeb_year_work
 
     # main path: wall (host clock, ends in a synchronize) and device span
     torch.cuda.synchronize()
@@ -1464,11 +1742,7 @@ def phase_timing(smi, runner, params, launches, n_steps, errs, div_instr):
     ms = kernel_device_ms(lambda: udeb_year(st, scal, ocean, init, vec), "udeb_year_kernel", 20)
     call_ms = cuda_ms(lambda: udeb_year(st, scal, ocean, init, vec), 20)
     plain_ms = cuda_ms(lambda: udeb_year_plain(st, scal, ocean, init, vec), 2)
-    small = udeb_inputs(256, dtype, seed=1)
-    flops = tuple(c / 256 * b for c in count_flops(udeb_year_plain, *small))
-    item = scal.element_size()
-    nbytes = item * (scal.numel() + ocean.numel() + 2 * st.n + vec.numel()
-                     + ocean.numel() + 8 * b)
+    *flops, nbytes = udeb_year_work(st, scal, ocean, init, vec)
     records.append(("udeb_year", "rscm_tpu_torch/csrc/udeb_year.cu",
                     "rscm_tpu/ops/udeb_month.py:400", ms, call_ms, plain_ms, flops, nbytes,
                     dname))
@@ -1479,15 +1753,9 @@ def phase_timing(smi, runner, params, launches, n_steps, errs, div_instr):
     ms = kernel_device_ms(lambda: lamcalc(lst, packed), "lamcalc_kernel", 20)
     call_ms = cuda_ms(lambda: lamcalc(lst, packed), 20)
     plain_ms = cuda_ms(lambda: lamcalc_plain(lst, packed), 2)
-    _, iters = lamcalc_plain_with_iterations(lst, packed)
-    small_st, small_packed = lamcalc_inputs(256, dtype, seed=1, fallback_every=0)
-    # the plain loop runs every member until the slowest has converged; the
-    # kernel stops each member when it converges: count those iterations
-    small_steps = int(lamcalc_plain_with_iterations(small_st, small_packed)[1].max())
-    per_iteration = [c / (256 * small_steps)
-                     for c in count_flops(lamcalc_plain, small_st, small_packed)]
-    flops = tuple(c * float(iters.double().sum()) for c in per_iteration)
-    nbytes = packed.element_size() * (packed.numel() + 3 * b)
+    # the kernel stops each member when it converges: the work counts the
+    # iterations each member of this batch needs
+    *flops, nbytes = lamcalc_work(lst, packed)
     records.append(("lamcalc", "rscm_tpu_torch/csrc/lamcalc.cu",
                     "rscm_tpu/ops/lamcalc_kernel.py:252", ms, call_ms, plain_ms, flops, nbytes,
                     dname))

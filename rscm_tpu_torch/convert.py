@@ -65,11 +65,8 @@ def params_from_jax(
 
 
 #: static parameters naming one of the JAX package's engines, with the
-#: port's engine for each
+#: port's engine for each (ClimateUDEB also takes the JAX names as aliases)
 _ENGINES = {("ClimateUDEB", "month_engine"): {"auto": "auto", "xla": "torch", "pallas": "cuda"}}
-#: static parameters that choose how the TPU computes the same function and
-#: have no counterpart here (the port's Thomas solve is sequential)
-_TPU_ONLY = {("ClimateUDEB", "tridiag_solver")}
 
 
 def _host_static(value):
@@ -102,7 +99,7 @@ def static_params_from_jax(jax_model) -> Dict[str, dict]:
         cls = type(comp).__name__
         static = {}
         for name, decl in getattr(comp, "_component_parameters", {}).items():
-            if not decl.static or (cls, name) in _TPU_ONLY:
+            if not decl.static:
                 continue
             value = _host_static(getattr(comp, name))
             if (cls, name) in _ENGINES:

@@ -244,6 +244,8 @@ def state_to_tensors(state, dtype, device):
         return None
 
     def cast(leaf):
+        if isinstance(leaf, torch.Tensor):  # e.g. left on the card by step()
+            return leaf.to(dtype=dtype, device=device) if leaf.is_floating_point() else leaf
         arr = np.asarray(leaf)
         if np.issubdtype(arr.dtype, np.floating):
             return torch.as_tensor(arr, dtype=dtype, device=device)

@@ -8,8 +8,12 @@ order*; execution order parity therefore requires replicating both the BFS
 queue discipline and that neighbor order — :meth:`ComponentGraph.bfs_order`
 does exactly that.
 
-The traversals are pure Python (the graphs hold a handful of nodes and
-are walked once, at build time).
+Like the reference's Rust core, the traversal engine itself is native:
+``native/graph_engine.cpp`` (bound via :mod:`rscm_tpu_torch.native`)
+implements the same BFS / Kahn / cycle-detection contracts and is used when
+its shared library builds and loads; the pure-Python implementations below
+remain the fallback and the oracle the tests hold it against
+(``RSCM_TPU_NATIVE=0`` forces them).  Both give the same order.
 """
 
 from __future__ import annotations
@@ -87,8 +91,20 @@ class ComponentGraph:
         """Successors in petgraph order (reverse edge-insertion)."""
         return [self.edges[e][1] for e in reversed(self._out[node])]
 
+    def _edge_pairs(self):
+        return [(src, dst) for src, dst, _ in self.edges]
+
+    @staticmethod
+    def _native_engine():
+        from ...native import load_graph_engine
+
+        return load_graph_engine()
+
     def bfs_order(self, start: int) -> List[int]:
         """Breadth-first visit order from ``start`` (petgraph ``Bfs`` replica)."""
+        engine = self._native_engine()
+        if engine is not None:
+            return engine.bfs_order(len(self.nodes), self._edge_pairs(), start)
         discovered = [False] * len(self.nodes)
         discovered[start] = True
         queue = deque([start])
@@ -113,6 +129,9 @@ class ComponentGraph:
         BFS order for chain graphs and fixes the diamond case, so every
         component reads fully-written upstream outputs.
         """
+        engine = self._native_engine()
+        if engine is not None:
+            return engine.topo_order(len(self.nodes), self._edge_pairs())
         indegree = [0] * len(self.nodes)
         for src, dst, _ in self.edges:
             if src != dst:
@@ -138,6 +157,15 @@ class ComponentGraph:
     def check_acyclic(self):
         """Raise on any cycle (self-loops tolerated, mirroring
         ``model/validation.rs:176`` which treats ``BackEdge(a, a)`` as OK)."""
+        engine = self._native_engine()
+        if engine is not None:
+            offender = engine.find_cycle(len(self.nodes), self._edge_pairs())
+            if offender >= 0:
+                raise CircularDependencyError(
+                    f"cycle passes through component "
+                    f"'{getattr(self.nodes[offender], 'component_name', offender)}'"
+                )
+            return
         WHITE, GRAY, BLACK = 0, 1, 2
         color = [WHITE] * len(self.nodes)
 

@@ -39,6 +39,7 @@ from typing import Dict, Sequence
 import numpy as np
 import torch
 
+from .. import xmath as xm
 from ..component import SolveContext, state_to_host, state_to_tensors
 from ..state import StateValue, Trajectory, make_window
 from ..timeseries import VariableType
@@ -186,18 +187,19 @@ class ModelProgram:
         names to lookback depths: after step ``idx`` such a trajectory drops
         its row ``idx - depth``, which no later step reads."""
         internals = self._pack_internals(internals, start_idx)
-        for idx in range(start_idx, self.n_steps - 1):
-            ctx = SolveContext(
-                float(self.time_bounds[idx]),
-                float(self.time_bounds[idx + 1]),
-                idx,
-                spans=self.spans,
-                scan_mode=True,
-            )
-            self._solve_all_nodes(endo, exo, internals, ctx, params)
-            for name, depth in (release or {}).items():
-                if idx - depth >= 0:
-                    endo[name].release(idx - depth)
+        with xm.scalar_dtype(self.dtype):
+            for idx in range(start_idx, self.n_steps - 1):
+                ctx = SolveContext(
+                    float(self.time_bounds[idx]),
+                    float(self.time_bounds[idx + 1]),
+                    idx,
+                    spans=self.spans,
+                    scan_mode=True,
+                )
+                self._solve_all_nodes(endo, exo, internals, ctx, params)
+                for name, depth in (release or {}).items():
+                    if idx - depth >= 0:
+                        endo[name].release(idx - depth)
         return self._unpack_internals(internals, self.n_steps - 1)
 
     def run_fn(self, endo, exo, params, internals, start_idx: int = 0):

@@ -21,11 +21,17 @@ Two executors share the single static execution plan:
   there (``traceable``), as the TPU package's ``run()`` takes its compiled
   ``lax.scan`` program.
 
-The checkpoint/serialisation surface is not ported yet.
+Checkpoints (:meth:`Model.checkpoint`, :meth:`Model.restore`) and the
+whole-model serialisation (:meth:`Model.to_full_dict`, :meth:`Model.to_toml`)
+write the TPU package's JSON and TOML formats, with internal states in
+their host layout, so a checkpoint written by either package restores in
+the other.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import json
 from typing import Dict, Optional
 
 import numpy as np
@@ -33,13 +39,97 @@ import torch
 
 from ..spatial import GridType, grid_for_type
 from ..state import DeviceWindow, StateValue, VariableSource, make_window
-from ..component import RequirementType, SolveContext
+from ..component import RequirementType, SolveContext, state_to_host
 from ..timeseries import TimeseriesCollection, VariableType
 from .graph import ComponentGraph, NullComponent
 from .input_state import InputState
 from .types import ReadSpec, WriteSpec
 
 __all__ = ["Model", "prepare_inputs"]
+
+#: module prefix of the TPU package's components, and the port's for each
+_REFERENCE_PREFIX = ("rscm_tpu.", "rscm_tpu_torch.")
+
+
+def _listify(obj):
+    """Prepare a nested structure for TOML: tuples->lists, drop None values."""
+    if isinstance(obj, dict):
+        return {k: _listify(v) for k, v in obj.items() if v is not None}
+    if isinstance(obj, (list, tuple)):
+        return [_listify(v) for v in obj]
+    if isinstance(obj, np.generic):
+        return obj.item()
+    return obj
+
+
+def _detomlify(obj):
+    return obj
+
+
+def _encode_state(state):
+    """An internal state as JSON values: dicts and lists kept, every leaf
+    (numpy, tensor on any device, scalar) as nested lists of numbers."""
+    if state is None:
+        return None
+    if isinstance(state, dict):
+        return {k: _encode_state(v) for k, v in state.items()}
+    if isinstance(state, (list, tuple)):
+        return [_encode_state(v) for v in state]
+    if isinstance(state, torch.Tensor):
+        state = state.detach().cpu().numpy()
+    return np.asarray(state).tolist()
+
+
+def _schema_of(state):
+    """Keys and leaf shapes of a state, whether its leaves are JSON lists or
+    arrays."""
+    if state is None:
+        return None
+    if isinstance(state, dict):
+        return {k: _schema_of(v) for k, v in state.items()}
+    try:
+        arr = np.asarray(state)
+        if arr.dtype != object:
+            return arr.shape
+    except ValueError:
+        pass
+    return [_schema_of(v) for v in state]
+
+
+def _decode_state(encoded, template):
+    """JSON values in the structure and leaf kinds of ``template`` (a
+    host-layout state)."""
+    if encoded is None or template is None:
+        return template
+    if isinstance(template, dict):
+        return {k: _decode_state(encoded.get(k), v) for k, v in template.items()}
+    if isinstance(template, (list, tuple)):
+        decoded = [_decode_state(e, t) for e, t in zip(encoded, template)]
+        return type(template)(decoded) if isinstance(template, tuple) else decoded
+    arr = np.asarray(encoded, dtype=np.float64)
+    if np.ndim(template):
+        return arr
+    if isinstance(template, float):
+        return float(arr)
+    return arr.reshape(np.shape(template))
+
+
+def _decode_raw(encoded):
+    """JSON values in their saved structure (a migration hook's input)."""
+    if isinstance(encoded, dict):
+        return {k: _decode_raw(v) for k, v in encoded.items()}
+    arr = np.asarray(encoded, dtype=np.float64)
+    return float(arr) if arr.ndim == 0 else arr
+
+
+def _transform_dict(t) -> dict:
+    return {
+        "variable": t.variable,
+        "unit": t.unit,
+        "source_grid": t.source_grid.value,
+        "target_grid": t.target_grid.value,
+        "direction": t.direction,
+    }
 
 
 def prepare_inputs(component, input_state: InputState):
@@ -289,3 +379,386 @@ class Model:
     def timeseries(self) -> TimeseriesCollection:
         """Clone of the collection held by the model."""
         return self.collection.copy()
+
+    # -- checkpoint / restore -------------------------------------------------
+
+    def _host_states(self) -> dict:
+        """Every internal state in its host layout (the layout of
+        ``create_initial_state``): numpy leaves on the host, without the
+        member axis a one-member run on the step-by-step executor leaves,
+        Python floats where the initial state has them."""
+        out = {}
+        for node, state in self.component_states.items():
+            if isinstance(state, dict):
+                state = state_to_host(state, self.graph.nodes[node].create_initial_state())
+            out[node] = state
+        return out
+
+    def to_dict(self) -> dict:
+        """Whole-model state: collection, time index, component states.
+
+        Mirror of ``Model::checkpoint`` (``runtime.rs:270-282``), enough to
+        recreate the run mid-stream, in the TPU package's format.
+        """
+        return {
+            "time_index": self.time_index,
+            "time_axis": self.time_axis.to_dict(),
+            "collection": self.collection.to_dict(),
+            "component_states": {
+                str(node): _encode_state(state)
+                for node, state in self._host_states().items()
+                if state is not None
+            },
+        }
+
+    def checkpoint(self) -> str:
+        return json.dumps(self.to_dict())
+
+    def restore(self, d: dict):
+        """Restore collection/time state from a checkpoint dict in place.
+
+        Internal states are validated against each component's *current*
+        state schema (keys and leaf shapes) before being adopted: a
+        component whose configuration changed between save and restore
+        (e.g. a different convolution engine or window size) would
+        otherwise compute with a half-restored state.  Components may
+        define ``migrate_internal_state(saved)`` to convert a mismatched
+        saved state (:class:`OceanCarbon` migrates ring-engine checkpoints
+        into the exp-sum layout); without one, a mismatch raises.  Restored
+        states are in the host layout; cached year-loop programs are
+        dropped and the state version bumped, so an ``EnsembleRunner`` over
+        this model gathers its inputs again.
+        """
+        from ..timeseries import TimeseriesCollection as TC
+
+        templates = self._host_states()
+        self.time_index = int(d["time_index"])
+        self._state_version += 1
+        self.collection = TC.from_dict(d["collection"])
+        self.component_states = templates
+        for node_str, encoded in d.get("component_states", {}).items():
+            node = int(node_str)
+            template = templates.get(node)
+            if encoded is None or template is None:
+                continue
+            if _schema_of(encoded) == _schema_of(template):
+                self.component_states[node] = _decode_state(encoded, template)
+                continue
+            component = self.graph.nodes[node]
+            name = getattr(component, "component_name", type(component).__name__)
+            migrate = getattr(component, "migrate_internal_state", None)
+            if migrate is None:
+                raise ValueError(
+                    f"checkpoint restore: saved internal state of component "
+                    f"{name!r} does not match its current schema "
+                    f"(saved {_schema_of(encoded)}, current "
+                    f"{_schema_of(template)}). The component's configuration "
+                    "(e.g. an engine or window-size parameter) changed "
+                    "between save and restore; rebuild the model with the "
+                    "original configuration."
+                )
+            migrated = migrate(_decode_raw(encoded))
+            if _schema_of(migrated) != _schema_of(template):
+                raise ValueError(
+                    f"checkpoint restore: {name}.migrate_internal_state "
+                    f"produced {_schema_of(migrated)}, but the current schema "
+                    f"is {_schema_of(template)}"
+                )
+            self.component_states[node] = migrated
+        self._programs = {}
+
+    # -- full serialisation (component reconstruction) ------------------------
+
+    def to_full_dict(self) -> dict:
+        """Complete model state incl. components and the execution graph.
+
+        Equivalent of the reference's serde whole-model serialisation
+        (``Model::checkpoint``, typetag'd components), in the TPU package's
+        format: enough for :meth:`from_full_dict` to rebuild an identical
+        runnable model.  Components are named by their module in this
+        package (``rscm_tpu_torch.*``).  A parameter held as a dataclass
+        (OceanCarbon's impulse-response forms) is written as a dict of its
+        fields, so the MAGICC graph also goes through JSON and TOML, which
+        the TPU package's writer refuses.
+        """
+        from ..schema import AggregatorComponent
+
+        components = []
+        for comp in self.graph.nodes:
+            if isinstance(comp, NullComponent):
+                components.append({"kind": "null"})
+            elif isinstance(comp, AggregatorComponent):
+                components.append(
+                    {
+                        "kind": "aggregator",
+                        "aggregate_name": comp.aggregate_name,
+                        "unit": comp.unit,
+                        "grid_type": comp.grid_type.value,
+                        "operation": comp.operation.kind,
+                        "weights": list(comp.operation.weights)
+                        if comp.operation.weights
+                        else None,
+                        "contributors": list(comp.contributors),
+                    }
+                )
+            else:
+                params = {}
+                for pname in getattr(comp, "_component_parameters", {}):
+                    value = getattr(comp, pname, None)
+                    if dataclasses.is_dataclass(value) and not isinstance(value, type):
+                        # e.g. OceanCarbon's impulse-response forms, which
+                        # the component takes back as a dict of fields
+                        value = _listify(dataclasses.asdict(value))
+                    elif value is not None and not isinstance(
+                        value, (str, bool, int, float, list, tuple)
+                    ):
+                        value = np.asarray(value).tolist()
+                    params[pname] = value
+                components.append(
+                    {
+                        "kind": "component",
+                        "class": type(comp).__name__,
+                        "module": type(comp).__module__,
+                        "params": params,
+                    }
+                )
+
+        edges = [
+            {
+                "src": src,
+                "dst": dst,
+                "name": getattr(payload, "name", ""),
+                "unit": getattr(payload, "unit", ""),
+                "requirement_type": getattr(
+                    payload, "requirement_type", RequirementType.EmptyLink
+                ).value,
+                "grid_type": getattr(payload, "grid_type", GridType.Scalar).value,
+            }
+            for src, dst, payload in self.graph.edges
+        ]
+
+        return {
+            **self.to_dict(),
+            "components": components,
+            "edges": edges,
+            "grid_weights": {gt.value: w for gt, w in self.grid_weights.items()},
+            "read_transforms": {
+                name: _transform_dict(t) for name, t in self.read_transforms.items()
+            },
+            "write_transforms": {
+                name: _transform_dict(t) for name, t in self.write_transforms.items()
+            },
+            "unit_conversions": [
+                [var, comp, factor]
+                for (var, comp), factor in self.unit_conversions.items()
+            ],
+            "variable_sources": [
+                [var, comp, source]
+                for (var, comp), source in self.variable_sources.items()
+            ],
+        }
+
+    @staticmethod
+    def from_full_dict(d: dict) -> "Model":
+        """Rebuild a model from :meth:`to_full_dict`'s dict, written by this
+        package or by the TPU package.  A component module named
+        ``rscm_tpu.<path>`` (the TPU package's) is imported as
+        ``rscm_tpu_torch.<path>``, so a reference dict loads without
+        importing the TPU package; parameter values cross over as they
+        are (the port takes the reference's engine names).  The TPU package
+        cannot read this package's dicts."""
+        import importlib
+
+        from ..component import RequirementDefinition
+        from ..schema import AggregateDefinition, AggregateOp, AggregatorComponent
+        from ..time_axis import TimeAxis
+        from .types import RequiredTransformation
+
+        graph = ComponentGraph()
+        for spec in d["components"]:
+            if spec["kind"] == "null":
+                graph.add_node(NullComponent())
+            elif spec["kind"] == "aggregator":
+                op = (
+                    AggregateOp.weighted(spec["weights"])
+                    if spec["operation"] == "Weighted"
+                    else AggregateOp(spec["operation"])
+                )
+                graph.add_node(
+                    AggregatorComponent(
+                        AggregateDefinition(
+                            spec["aggregate_name"],
+                            spec["unit"],
+                            op,
+                            spec["contributors"],
+                            GridType(spec["grid_type"]),
+                        )
+                    )
+                )
+            else:
+                module_name = spec["module"]
+                reference, port = _REFERENCE_PREFIX
+                if module_name.startswith(reference):
+                    module_name = port + module_name[len(reference):]
+                module = importlib.import_module(module_name)
+                cls = getattr(module, spec["class"])
+                graph.add_node(cls(**spec["params"]))
+
+        for edge in d["edges"]:
+            graph.add_edge(
+                edge["src"],
+                edge["dst"],
+                RequirementDefinition(
+                    edge["name"],
+                    edge["unit"],
+                    RequirementType(edge["requirement_type"]),
+                    GridType(edge["grid_type"]),
+                ),
+            )
+
+        def parse_transforms(entry):
+            return {
+                name: RequiredTransformation(
+                    t["variable"],
+                    t["unit"],
+                    GridType(t["source_grid"]),
+                    GridType(t["target_grid"]),
+                    t["direction"],
+                )
+                for name, t in entry.items()
+            }
+
+        model = Model(
+            graph=graph,
+            initial_node=0,
+            collection=TimeseriesCollection.from_dict(d["collection"]),
+            time_axis=TimeAxis.from_dict(d["time_axis"]),
+            grid_weights={
+                GridType(k): v for k, v in d.get("grid_weights", {}).items()
+            },
+            read_transforms=parse_transforms(d.get("read_transforms", {})),
+            write_transforms=parse_transforms(d.get("write_transforms", {})),
+            unit_conversions={
+                (var, comp): factor
+                for var, comp, factor in d.get("unit_conversions", [])
+            },
+            variable_sources={
+                (var, comp): source
+                for var, comp, source in d.get("variable_sources", [])
+            },
+        )
+        model.restore(d)
+        return model
+
+    def to_toml(self) -> str:
+        """Serialise the model to TOML (mirror of ``python/model.rs:224``)."""
+        from ...utils.toml_writer import dumps_toml
+
+        return dumps_toml(_listify(self.to_full_dict()))
+
+    @staticmethod
+    def from_toml(text: str) -> "Model":
+        import tomllib
+
+        return Model.from_full_dict(_detomlify(tomllib.loads(text)))
+
+    # -- introspection --------------------------------------------------------
+
+    def as_dot(self) -> str:
+        """Graphviz dot export (mirror of ``runtime.rs:532-544``)."""
+        lines = ["digraph {"]
+        for i, component in enumerate(self.graph.nodes):
+            label = repr(component).replace("\\", "\\\\").replace('"', '\\"')
+            lines.append(f'    {i} [ label = "{label}" ]')
+        for src, dst, payload in self.graph.edges:
+            name = getattr(payload, "name", "")
+            lines.append(f'    {src} -> {dst} [ label = "{name}" ]')
+        lines.append("}")
+        return "\n".join(lines)
+
+    def debug_info(self, format: str = "rich") -> str:
+        """Execution-order and dataflow introspection.
+
+        Mirror of ``model/debug.rs``: execution order, per-component inputs
+        with source classification, outputs, grids, transforms, conversions.
+        ``format`` is ``"rich"`` (ANSI colours), ``"plain"`` or ``"json"``.
+        """
+        info = {"execution_order": [], "variables": {}}
+        for position, node in enumerate(self.exec_order):
+            component = self.graph.nodes[node]
+            if isinstance(component, NullComponent):
+                continue
+            comp_name = getattr(component, "component_name", type(component).__name__)
+            read_specs, write_specs = self._plan[node]
+            entry = {
+                "component": comp_name,
+                "position": position,
+                "inputs": [
+                    {
+                        "name": spec.var_name,
+                        "source": spec.source,
+                        "grid": spec.window_grid.value,
+                        "unit_conversion_factor": spec.factor,
+                        "read_transform": spec.aggregation is not None,
+                    }
+                    for spec in read_specs
+                ],
+                "outputs": [
+                    {
+                        "name": spec.var_name,
+                        "grid": spec.source_grid.value,
+                        "storage_grid": spec.storage_grid.value,
+                        "write_transform": spec.matrix is not None,
+                    }
+                    for spec in write_specs.values()
+                ],
+            }
+            info["execution_order"].append(entry)
+        for item in self.collection:
+            info["variables"][item.name] = {
+                "type": item.variable_type.value,
+                "grid": item.data.grid.grid_name(),
+                "units": item.data.units,
+            }
+        if format == "json":
+            return json.dumps(info, indent=2)
+
+        # "rich" = coloured terminal output (mirror of model/debug.rs with
+        # the reference's rich-debug feature); "plain" strips the colours.
+        if format == "rich":
+            bold, dim, reset = "\033[1m", "\033[2m", "\033[0m"
+            cyan, green, yellow, magenta = (
+                "\033[36m", "\033[32m", "\033[33m", "\033[35m"
+            )
+        else:
+            bold = dim = reset = cyan = green = yellow = magenta = ""
+
+        source_color = {
+            VariableSource.Exogenous: green,
+            VariableSource.UpstreamOutput: cyan,
+            VariableSource.OwnState: magenta,
+        }
+        lines = [f"{bold}Model execution order:{reset}"]
+        for entry in info["execution_order"]:
+            lines.append(f"  {bold}[{entry['position']}] {entry['component']}{reset}")
+            for inp in entry["inputs"]:
+                extra = []
+                if inp["unit_conversion_factor"] != 1.0:
+                    extra.append(f"x{inp['unit_conversion_factor']:.6g}")
+                if inp["read_transform"]:
+                    extra.append("aggregated")
+                suffix = f" {yellow}({', '.join(extra)}){reset}" if extra else ""
+                color = source_color.get(inp["source"], "")
+                lines.append(
+                    f"      in:  {inp['name']} "
+                    f"[{color}{inp['source']}{reset}, {inp['grid']}]{suffix}"
+                )
+            for out in entry["outputs"]:
+                suffix = (
+                    f" {yellow}-> {out['storage_grid']}{reset}"
+                    if out["write_transform"]
+                    else ""
+                )
+                lines.append(f"      out: {out['name']} [{out['grid']}]{suffix}")
+        lines.append(f"{dim}{len(info['variables'])} variables in collection{reset}")
+        return "\n".join(lines)

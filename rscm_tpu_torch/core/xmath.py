@@ -16,8 +16,26 @@ works directly on both value kinds via operator overloading.
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
+
 import numpy as np
 import torch
+
+#: floating dtype of host-scalar branches that meet only a boolean tensor in
+#: :func:`where`; the year loop sets it to its run's dtype (:func:`scalar_dtype`)
+_SCALAR_DTYPE = contextvars.ContextVar("xmath_scalar_dtype", default=torch.float64)
+
+
+@contextlib.contextmanager
+def scalar_dtype(dtype):
+    """Within the block, :func:`where` takes host-scalar branches selected by
+    a boolean tensor in ``dtype`` (float64 outside any block)."""
+    token = _SCALAR_DTYPE.set(dtype)
+    try:
+        yield
+    finally:
+        _SCALAR_DTYPE.reset(token)
 
 
 def _is_tensor(*xs) -> bool:
@@ -65,7 +83,17 @@ sqrt = _dispatch("sqrt")
 abs = _dispatch("abs")  # noqa: A001
 sign = _dispatch("sign")
 tanh = _dispatch("tanh")
+sinh = _dispatch("sinh")
+cosh = _dispatch("cosh")
+sin = _dispatch("sin")
+cos = _dispatch("cos")
+arctan = _dispatch("arctan")
+floor = _dispatch("floor")
+ceil = _dispatch("ceil")
+log2 = _dispatch("log2")
+log10 = _dispatch("log10")
 isnan = _dispatch("isnan")
+nan_to_num = _dispatch("nan_to_num")
 
 
 def clip(x, lo, hi):
@@ -108,13 +136,15 @@ def minimum(a, b):
 
 def where(pred, on_true, on_false):
     """``np.where``.  When only ``pred`` is a tensor, host-scalar branches
-    are taken in float64 (as the JAX package's weakly typed scalars are
-    under x64), not in torch's float32 default, which would round them."""
+    are taken in the dtype :func:`scalar_dtype` sets: the year loop's
+    working dtype, so a float32 run stays float32, and float64 elsewhere
+    (as the JAX package's weakly typed scalars are under x64), never
+    torch's float32 default, which would round them in a float64 run."""
     if _is_tensor(pred, on_true, on_false):
         ref = next(x for x in (on_true, on_false, pred) if isinstance(x, torch.Tensor))
         if not isinstance(pred, torch.Tensor):
             pred = torch.as_tensor(pred, device=ref.device)
-        dtype = ref.dtype if ref.is_floating_point() else torch.float64
+        dtype = ref.dtype if ref.is_floating_point() else _SCALAR_DTYPE.get()
         for x in (on_true, on_false):
             if isinstance(x, torch.Tensor) and x.is_floating_point():
                 dtype = x.dtype
@@ -193,6 +223,13 @@ def sum(x, axis=None):  # noqa: A001
     if _is_tensor(x):
         return x.sum() if axis is None else x.sum(dim=axis)
     return _host(np.sum(x, axis=axis))
+
+
+def mean(x, axis=None):
+    """Mean over ``axis`` (all axes when None)."""
+    if _is_tensor(x):
+        return x.mean() if axis is None else x.mean(dim=axis)
+    return _host(np.mean(x, axis=axis))
 
 
 def tile(x, reps: int):

@@ -180,6 +180,16 @@ class OceanCarbon(Component):
 
     def __init__(self, **params):
         super().__init__(**params)
+        # an impulse-response form read back from a serialised model: a dict
+        # of its fields (``Model.to_full_dict``) or another package's form
+        for name in ("irf_early", "irf_late"):
+            form = getattr(self, name)
+            if isinstance(form, dict):
+                form = IrfForm(form["kind"], tuple(form["coefficients"]),
+                               tuple(form.get("timescales", ())))
+            elif not isinstance(form, IrfForm):
+                form = IrfForm(form.kind, tuple(form.coefficients), tuple(form.timescales))
+            setattr(self, name, form)
         if self.history_dtype not in _STORAGE_DTYPES:
             raise ValueError(
                 f"OceanCarbon.history_dtype must be one of {sorted(_STORAGE_DTYPES)}, "
@@ -359,6 +369,51 @@ class OceanCarbon(Component):
                 "tail_accum": np.zeros(EXPSUM_TAIL_K),
             }
         return {"flux_history": np.zeros(self.max_history_months)}
+
+    def migrate_internal_state(self, saved: dict) -> dict:
+        """Convert a checkpoint saved under a different engine/window.
+
+        Called by :meth:`Model.restore` when the saved state's schema does
+        not match :meth:`create_initial_state` (the engine auto-resolution
+        or ``max_history_months`` changed between save and restore).
+
+        - ring -> expsum is exact up to the tail fit (~1e-9): the young
+          window is the first ``Y`` ring slots, and every older entry
+          folds into the tail accumulators with its age-in-months decay,
+          ``S_k = sum_p f_p q_k^p``, the identity the engine's year-end
+          fold maintains.
+        - ring -> ring with a different window truncates or zero-pads
+          (the semantic of changing the window).
+        - expsum -> anything else raises: the aggregated tail cannot be
+          expanded back into a per-month flux history.
+        """
+        if set(saved) != {"flux_history"}:
+            raise ValueError(
+                "OceanCarbon: cannot migrate a checkpoint saved under the "
+                "exp-sum engine to a different configuration (the tail "
+                "accumulator cannot be expanded back into a flux history); "
+                "restore with the original engine/window parameters."
+            )
+        ring = np.asarray(saved["flux_history"], dtype=np.float64)
+        if self.resolved_engine() == "ring":
+            n = int(self.max_history_months)
+            out = np.zeros(ring.shape[:-1] + (n,))
+            m = min(n, ring.shape[-1])
+            out[..., :m] = ring[..., :m]
+            return {"flux_history": out}
+        tabs = self._expsum_tables()
+        young = tabs["young"]
+        q = tabs["q"]
+        fh = ring[..., :young]
+        if fh.shape[-1] < young:
+            pad = [(0, 0)] * (fh.ndim - 1) + [(0, young - fh.shape[-1])]
+            fh = np.pad(fh, pad)
+        ages = np.arange(young, ring.shape[-1])
+        if len(ages):
+            tail = ring[..., young:] @ (q[None, :] ** ages[:, None])
+        else:
+            tail = np.zeros(ring.shape[:-1] + (EXPSUM_TAIL_K,))
+        return {"flux_history": np.ascontiguousarray(fh), "tail_accum": tail}
 
     # -- loop-layout hooks ------------------------------------------------------
     #

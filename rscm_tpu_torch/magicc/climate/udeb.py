@@ -21,6 +21,7 @@ a separate numpy host path (``_solve_host``).
 
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
@@ -43,6 +44,8 @@ DIFFUSIVITY_CM2S_TO_M2YR = 3155.76
 RHO_SEAWATER = 1026.0
 CP_SEAWATER = 3985.0
 SECONDS_PER_YEAR = 31557600.0
+#: the JAX package's month engines, with the port's engine for each
+_ENGINE_ALIASES = {"pallas": "cuda", "xla": "torch"}
 
 # CMIP5-derived initial ocean temperature profiles (climate_udeb.rs tables)
 CMIP5_PROFILE_NH = (
@@ -132,8 +135,15 @@ class ClimateUDEB(Component):
     #: engine for the yearly monthly sub-steps and LAMCALC: "cuda" (the
     #: hand-written kernels, ops/udeb_month.py and ops/lamcalc_kernel.py),
     #: "torch" (their plain PyTorch versions) or "auto" (default: "cuda"
-    #: when the run's tensors are on a CUDA device, "torch" on the CPU)
+    #: when the run's tensors are on a CUDA device, "torch" on the CPU);
+    #: the JAX package's names "pallas" and "xla" are aliases of "cuda" and
+    #: "torch"
     month_engine = Parameter(default="auto", static=True)
+    #: tridiagonal solver of the torch engine's column update: "sequential"
+    #: (the Thomas sweep the kernel runs) or "assoc" (associative scans,
+    #: utils/linear_algebra.py::thomas_solve_assoc); the cuda engine runs
+    #: its sweep either way, as the JAX package's Pallas engine does
+    tridiag_solver = Parameter(default="sequential", static=True)
     #: gate for the per-year LAMCALC; with False the program reuses the
     #: build-time lambdas (exact when the ECS feedback sensitivities are
     #: zero; an approximation otherwise that trades ECS time-variation for
@@ -475,11 +485,14 @@ class ClimateUDEB(Component):
         adjusted_ecs = M(self.ecs * cumt_factor * q_factor)
 
         fgno, fgnl, fgso, fgsl = self.global_box_fractions()
-        engine = self.month_engine
+        engine = _ENGINE_ALIASES.get(self.month_engine, self.month_engine)
         if engine == "auto":
             engine = "cuda" if prev_temp.device.type == "cuda" else "torch"
         if engine not in ("cuda", "torch"):
-            raise ValueError(f"ClimateUDEB.month_engine must be auto, cuda or torch, not {engine!r}")
+            raise ValueError(
+                "ClimateUDEB.month_engine must be auto, cuda, torch, pallas or xla, "
+                f"not {engine!r}"
+            )
 
         if self.time_varying_ecs:
             lamcalc_params = LamcalcParams(
@@ -545,7 +558,10 @@ class ClimateUDEB(Component):
             init_prof = init_prof.reshape(2 * n, 1).expand(2 * n, b)
         else:
             init_prof = init_prof.reshape(b, 2 * n).T
-        year = udeb_year if engine == "cuda" else udeb_year_plain
+        year = (
+            udeb_year if engine == "cuda"
+            else functools.partial(udeb_year_plain, tridiag=self.tridiag_solver)
+        )
         ocean_out, vec_out = year(
             static_from_component(self, dt_year),
             scal.contiguous(),

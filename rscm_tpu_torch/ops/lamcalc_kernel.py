@@ -43,6 +43,7 @@ import numpy as np
 import torch
 
 from .plain_grad import plain_jvp, plain_vjp
+from .work import count_arithmetic, note_launch
 
 __all__ = [
     "lamcalc",
@@ -51,6 +52,7 @@ __all__ = [
     "lamcalc_scalars",
     "LamStatic",
     "SCALAR_ROWS",
+    "lamcalc_work",
 ]
 
 #: packed per-member scalar input rows, in order
@@ -308,7 +310,29 @@ def _lamcalc_forward(st: LamStatic, packed):
     if err != 0:
         raise RuntimeError(f"lamcalc: kernel launch failed with CUDA error {err}")
     lamcalc.launches += 1
+    note_launch("lamcalc", lamcalc_work, st, packed)
     return out
+
+
+#: members of a launch whose plain version is counted for its work
+_WORK_SAMPLE = 256
+
+
+def lamcalc_work(st: LamStatic, packed):
+    """``(operations, divisions, bytes)`` of one launch on ``packed``: the
+    plain version's arithmetic per member-iteration
+    (:func:`~.work.count_arithmetic` on the first members, over the
+    iterations the slowest of them runs) times the iterations each member
+    of the batch needs (the kernel stops each member when it converges);
+    the bytes of the input read once and the output written once."""
+    b = packed.shape[1]
+    sample = packed[:, : min(b, _WORK_SAMPLE)]
+    steps = int(lamcalc_plain_with_iterations(st, sample)[1].max())
+    other, divisions = count_arithmetic(lamcalc_plain, st, sample)
+    iterations = float(lamcalc_plain_with_iterations(st, packed)[1].double().sum())
+    scale = iterations / (sample.shape[1] * steps)
+    nbytes = packed.element_size() * (packed.numel() + S_OUT * b)
+    return other * scale, divisions * scale, nbytes
 
 
 #: kernel launches since the count was last set to 0

@@ -65,7 +65,9 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..utils.linear_algebra import thomas_solve_assoc
 from .plain_grad import plain_jvp, plain_vjp
+from .work import count_arithmetic, note_launch
 
 __all__ = [
     "udeb_year",
@@ -76,6 +78,7 @@ __all__ = [
     "static_from_component",
     "max_kernel_layers",
     "kernel_config",
+    "udeb_year_work",
 ]
 
 #: packed per-member scalar rows, in order
@@ -162,9 +165,10 @@ def static_from_component(comp, dt_year: float) -> UdebStatic:
 
 
 def _month_plain(st: UdebStatic, scal, ocean, land, ground, hemi, upwell,
-                 alpha_eff, init_prof, frac):
+                 alpha_eff, init_prof, frac, tridiag="sequential"):
     """One monthly sub-step on ``(2, n, B)`` / ``(2, B)`` tensors
-    (transcription of ``_month_body``)."""
+    (transcription of ``_month_body``); ``tridiag="assoc"`` solves the
+    column by associative scans instead of the Thomas sweep."""
     n = st.n
     dz, dz_mix = st.dz, st.dz_mix
     dz1 = dz / 2.0
@@ -263,18 +267,26 @@ def _month_plain(st: UdebStatic, scal, ocean, land, ground, hemi, upwell,
     b_rows = [b0, *b_mid.unbind(1), b_last]
     c_rows = [c0, *c_mid.unbind(1)]
     d_rows = [d0, *d_mid.unbind(1), d_last]
-    c_prime = [c_rows[0] / b_rows[0]]
-    d_prime = [d_rows[0] / b_rows[0]]
-    for i in range(1, n):
-        denom = b_rows[i] - a_rows[i] * c_prime[i - 1]
-        if i < n - 1:
-            c_prime.append(c_rows[i] / denom)
-        d_prime.append((d_rows[i] - a_rows[i] * d_prime[i - 1]) / denom)
-    x = [None] * n
-    x[n - 1] = d_prime[n - 1]
-    for i in range(n - 2, -1, -1):
-        x[i] = d_prime[i] - c_prime[i] * x[i + 1]
-    ocean = torch.minimum(torch.stack(x, dim=1), sc["max_temp"])
+    if tridiag == "assoc":
+        zeros = torch.zeros_like(b0)
+        solution = thomas_solve_assoc(*(
+            torch.stack(rows, dim=-1)
+            for rows in ([zeros, *a_rows[1:]], b_rows, [*c_rows, zeros], d_rows)
+        )).movedim(-1, 1)  # (2, B, n) -> (2, n, B)
+    else:
+        c_prime = [c_rows[0] / b_rows[0]]
+        d_prime = [d_rows[0] / b_rows[0]]
+        for i in range(1, n):
+            denom = b_rows[i] - a_rows[i] * c_prime[i - 1]
+            if i < n - 1:
+                c_prime.append(c_rows[i] / denom)
+            d_prime.append((d_rows[i] - a_rows[i] * d_prime[i - 1]) / denom)
+        x = [None] * n
+        x[n - 1] = d_prime[n - 1]
+        for i in range(n - 2, -1, -1):
+            x[i] = d_prime[i] - c_prime[i] * x[i + 1]
+        solution = torch.stack(x, dim=1)
+    ocean = torch.minimum(solution, sc["max_temp"])
 
     # -- land / exchange / upwelling ----------------------------------------
     alpha, gamma = sc["adj_alpha"], sc["adj_gamma"]
@@ -313,16 +325,22 @@ def _month_plain(st: UdebStatic, scal, ocean, land, ground, hemi, upwell,
     return ocean, land, ground, hemi, upwell
 
 
-def udeb_year_plain(st: UdebStatic, scal, ocean, init_prof, vec):
+def udeb_year_plain(st: UdebStatic, scal, ocean, init_prof, vec, tridiag="sequential"):
     """Plain PyTorch version of the kernel on the member-minor layout
-    (twin of the JAX package's ``_months_jnp``)."""
+    (twin of the JAX package's ``_months_jnp``).  ``tridiag`` is
+    ClimateUDEB's ``tridiag_solver``: ``"sequential"`` (the Thomas sweep
+    the kernel runs) or ``"assoc"`` (:func:`~rscm_tpu_torch.utils.
+    linear_algebra.thomas_solve_assoc`)."""
+    if tridiag not in ("sequential", "assoc"):
+        raise ValueError(f"tridiag_solver must be 'sequential' or 'assoc', not {tridiag!r}")
     n, b = st.n, ocean.shape[-1]
     ocean = ocean.reshape(2, n, b)
     init_prof = init_prof.reshape(2, n, -1)
     land, ground, hemi, upwell, alpha_eff = (vec[k : k + 2] for k in range(0, 10, 2))
     for m in range(1, st.steps + 1):
         ocean, land, ground, hemi, upwell = _month_plain(
-            st, scal, ocean, land, ground, hemi, upwell, alpha_eff, init_prof, m / st.steps
+            st, scal, ocean, land, ground, hemi, upwell, alpha_eff, init_prof, m / st.steps,
+            tridiag,
         )
     return ocean.reshape(2 * n, b), torch.cat([land, ground, hemi, upwell])
 
@@ -553,7 +571,28 @@ def _udeb_year_forward(st: UdebStatic, scal, ocean, init_prof, vec):
     if err != 0:
         raise RuntimeError(f"udeb_year: kernel launch failed with CUDA error {err}")
     udeb_year.launches += 1
+    note_launch("udeb_year", udeb_year_work, st, scal, ocean, init_prof, vec)
     return ocean_out, vec_out
+
+
+#: members of a launch whose plain version is counted for its work
+_WORK_SAMPLE = 256
+
+
+def udeb_year_work(st: UdebStatic, scal, ocean, init_prof, vec):
+    """``(operations, divisions, bytes)`` of one launch on these inputs:
+    the plain version's arithmetic (:func:`~.work.count_arithmetic`) on the
+    first members, which every member repeats, scaled to the batch; the
+    bytes of each input read once and each output written once."""
+    b = ocean.shape[-1]
+    k = min(b, _WORK_SAMPLE)
+    other, divisions = count_arithmetic(
+        udeb_year_plain, st, scal[:, :k], ocean[:, :k], init_prof[:, :k], vec[:, :k]
+    )
+    nbytes = scal.element_size() * (
+        scal.numel() + ocean.numel() + 2 * st.n + vec.numel() + ocean.numel() + 8 * b
+    )
+    return other / k * b, divisions / k * b, nbytes
 
 
 #: kernel launches since the count was last set to 0

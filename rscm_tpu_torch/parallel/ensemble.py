@@ -83,6 +83,27 @@ class EnsembleRunner:
         self._inputs = None
         self._inputs_version = self._model_version()
 
+    def _cached_inputs(self, stream: bool, start_idx: int):
+        """The model's shared inputs ``(endo, exo, internals)`` on the
+        device, gathered once per (mode, start) and reused until the
+        model's state changes."""
+        if self._model_version() != self._inputs_version:
+            self.refresh_inputs()
+        key = (bool(stream), int(start_idx))
+        if self._inputs is None:
+            self._inputs = {}
+        if key not in self._inputs:
+            p = self.program
+            endo = p.gather_endo_window(1, start_idx) if stream else p.gather_endo(1)
+            self._inputs[key] = (endo, p.gather_exo(), p.gather_internals())
+        return self._inputs[key]
+
+    def base_args(self):
+        """The single-member program inputs ``(endo, exo, params,
+        internals)`` (``endo`` at one member)."""
+        p = self.program
+        return (p.gather_endo(1), p.gather_exo(), p.gather_params(), p.gather_internals())
+
     def base_params(self) -> dict:
         return self.program.gather_params()
 
@@ -223,17 +244,7 @@ class EnsembleRunner:
                     v, dtype=self.dtype, device=self.device
                 )
 
-        # shared model inputs, moved to the device once per (mode, start)
-        # and reused until the model's state changes
-        if self._model_version() != self._inputs_version:
-            self.refresh_inputs()
-        key = (bool(stream), int(start_idx))
-        if self._inputs is None:
-            self._inputs = {}
-        if key not in self._inputs:
-            endo = p.gather_endo_window(1, start_idx) if stream else p.gather_endo(1)
-            self._inputs[key] = (endo, p.gather_exo(), p.gather_internals())
-        endo, exo_in, internals = self._inputs[key]
+        endo, exo_in, internals = self._cached_inputs(stream, start_idx)
         endo = {name: v.expand(-1, batch, -1) for name, v in endo.items()}
         exo_in = {**exo_in, **batch_exo}
         if stream:
@@ -244,3 +255,24 @@ class EnsembleRunner:
             out, _ = p.run_fn(endo, exo_in, merged, internals, start_idx=start_idx)
             names = p.endo_names if out_vars is None else [n for n in p.endo_names if n in out_vars]
         return {name: out[name].transpose(0, 1) for name in names}
+
+    def cost_analysis(
+        self,
+        params: dict,
+        exo: Optional[dict] = None,
+        out_vars: Optional[list] = None,
+        start_idx: int = 0,
+        stream: Optional[bool] = None,
+    ) -> dict:
+        """Operations and bytes of the run :meth:`run` makes for these
+        arguments, counted while it runs once (the model's inputs are
+        gathered onto the device first and not counted).  The keys and
+        what they count: :func:`rscm_tpu_torch.utils.profiling.cost_analysis`."""
+        from rscm_tpu_torch.utils.profiling import count_costs
+
+        if stream is None:
+            stream = out_vars is not None
+        self._cached_inputs(stream, start_idx)
+        with count_costs() as costs:
+            self.run(params, exo=exo, out_vars=out_vars, start_idx=start_idx, stream=stream)
+        return costs

@@ -56,7 +56,7 @@ def test_engines_agree_on_cpu():
 
 
 def test_unknown_engine_raises():
-    model = build_udeb("rscm_tpu_torch", YEARS[:3], step_erf(YEARS[:3]), month_engine="pallas")
+    model = build_udeb("rscm_tpu_torch", YEARS[:3], step_erf(YEARS[:3]), month_engine="mosaic")
     with pytest.raises(ValueError, match="month_engine"):
         model.run(device="cpu")
 
