@@ -52,7 +52,7 @@ Phases, each printed with its elapsed time:
               a ring-engine run (10,000 members, 1850-1950) must agree with
               its exp-sum twin within the CPU test's bounds; it prints the
               warm run's wall and member-years/s, the PyTorch calls a year
-              and peak device memory, and over the first 101 years at the
+              and peak device memory, and over the first 51 years at the
               same batch the device busy time and idle share, the top device
               operations with both kernels' ms a launch and the device
               operations a year;
@@ -64,7 +64,7 @@ Phases, each printed with its elapsed time:
               no kernel may launch; every output finite, every member warmer
               under the highest pathway than under the lowest, one (scenario,
               member) pair within 1e-10 of a single-scenario run; wall,
-              member-years/s, peak memory; over the first 101 years 16
+              member-years/s, peak memory; over the first 51 years 16
               members streamed bit-equal to the full loop, the calls a year
               and a profile;
 9. fullmagicc -- the full-options MAGICC graph (``bench.py:305-359``: ten
@@ -74,7 +74,7 @@ Phases, each printed with its elapsed time:
               be 250, every output finite from index 1, the permafrost pools
               conserve carbon per member, 64 members agree with the plain
               engines within 1e-10; wall, member-years/s, peak memory; over
-              the first 101 years 16 streamed members equal to the full loop
+              the first 51 years 16 streamed members equal to the full loop
               bit for bit, the calls a year and a profile; the permafrost
               and sea-level solves' device time alone;
 10. host -- the step-by-step executor (the flagship at one member against the
@@ -90,8 +90,28 @@ Phases, each printed with its elapsed time:
               with its ERF from a scenario CSV, 100,000 members x 351 years
               bit-equal to the model built by hand (no launches); and
               ``diagnose_nans`` on the card naming the year, reader and
-              output of a NaN put into an exogenous input;
-11. calibrate -- the MAGICC synthetic-truth calibration (``magicc_calibration``,
+              output of a NaN put into an exogenous input; the eleven
+              host-path methods of ClimateUDEB and OceanCarbon on host values,
+              the ocean heat content, heat uptake and SST->air map within
+              1e-10 of what the card's step wrote;
+11. mesh -- the batch split over a device mesh, each split run against the
+              unsplit run of the same members: the MAGICC path (100,000
+              members x 251 years, streamed) on ``make_mesh()``, bit-equal,
+              250 launches of each kernel; through two shards of the card
+              (``make_mesh(devices=["cuda:0"] * 2)``) the MAGICC graph at
+              100,001 members (one member of padding; 2 x 250 launches of
+              each kernel; wall and member-years/s), the full-options graph
+              at 10,000 members x 151 years and the scenario cross product
+              at 80,000 members x 101 years (batched ``exo`` rows split),
+              each within rtol 1e-12 beyond index 0; the device-engine
+              sampler (MAGICC
+              posterior, 1,024 walkers, 2 iterations, 1850-1900) whose split
+              chain equals the unsplit chain with the same seed (rtol 1e-12,
+              the same acceptance counts) and whose split log posteriors
+              equal those of the same shards run alone, bit for bit; NUTS, 64
+              chains in two shards, one warmup iteration and one transition
+              at depth 2, 1850-1855: finite;
+12. calibrate -- the MAGICC synthetic-truth calibration (``magicc_calibration``,
               1850-2100, eight parameters, float64, bfloat16 flux history)
               through the port's entry points, with both launch counts read
               around each step: the log posterior of 1,024 prior walkers as
@@ -107,7 +127,7 @@ Phases, each printed with its elapsed time:
               the device ensemble sampler, 1,024 walkers, two iterations
               under the stretch and the DE move, with a checkpoint round
               trip; NUTS, 64 chains, tree depth 2, one warmup iteration and
-              one transition at 1850-1875; each kernel's backward (the plain
+              one transition at 1850-1860; each kernel's backward (the plain
               version recomputed and differentiated) timed alone.
 
 ``python3 chip_smoke.py PHASE ...`` runs the device and build phases and the
@@ -119,6 +139,7 @@ are the per-kernel JSON record, the ``nvidia-smi`` name/power line and
 ``{"ok": true, "device": {...}}``.
 """
 
+import copy
 import csv
 import dataclasses
 import json
@@ -151,7 +172,7 @@ SECOND = {"members": 10_000, "n_layers": 30, "checked": 16}
 #: the MAGICC path: members, members re-run through the plain engines, and
 #: the ring-engine check's members and last year
 MAGICC = {"members": 100_000, "checked": 64, "ring_members": 10_000, "ring_last_year": 1950.0,
-          "profile_years": 101}
+          "profile_years": 51}
 MAGICC_OUT = ["Surface Temperature", "Atmospheric Concentration|CO2"]
 #: ring engine against its exp-sum twin, max |ring - expsum| / max |expsum|
 #: per variable (tests/test_torch_magicc_graph.py::RING_TWIN)
@@ -159,21 +180,21 @@ RING_TWIN = {"float32": 1e-8, "bfloat16": 5e-3}
 #: the flagship path (bench.py:123-214): members, years, members re-run on the
 #: CPU, the sweep's seed; and the step-by-step executor's flagship run
 FLAGSHIP = {"members": 100_000, "years": 551, "checked": 64, "seed": 42, "step_years": 100,
-            "profile_years": 101}
+            "profile_years": 51}
 FLAGSHIP_OUT = ["Surface Temperature"]
 #: the scenario cross product (bench.py:390-430): members, emission
 #: pathways, years (1750-2300), the sweep's seed, the (scenario, member) pair
 #: held against a single-scenario run, members streamed against the full
 #: loop, and the profile's years
 SCENARIOS = {"members": 10_000, "scenarios": 8, "years": 551, "seed": 5, "spot": (5, 7),
-             "streamed_checked": 16, "profile_years": 101}
+             "streamed_checked": 16, "profile_years": 51}
 SCENARIOS_OUT = ["Surface Temperature"]
 #: the full-options MAGICC graph (bench.py:305-359, the 100k point): members,
 #: the sweep's seed, members re-run through the plain engines, members
 #: streamed against the full loop, the profile's years, and the standalone
 #: solves timed for the permafrost and sea-level shares of device time
 FULLMAGICC = {"members": 100_000, "seed": 3, "checked": 64, "streamed_checked": 16,
-              "profile_years": 101, "component_reps": 10}
+              "profile_years": 51, "component_reps": 10}
 #: bench.py's outputs, and the permafrost outputs the conservation identity
 #: is read from
 FULLMAGICC_OUT = ["Surface Temperature", "Sea Level Rise", "Emissions|CO2|Permafrost",
@@ -202,8 +223,24 @@ TWO_LAYER_LAYERS = ("configs/two-layer/defaults.toml",
 #: and initial step size (the default 0.1 diverges at once on this posterior
 #: from around the truth: 63 of 64 chains on the H100)
 CALIB = {"walkers": 1024, "checked": 16, "fd_rel_step": 1e-6, "cut_last_year": 1900.0,
-         "adam_steps": 1, "ensemble_iterations": 2, "nuts_last_year": 1875.0,
+         "adam_steps": 1, "ensemble_iterations": 2, "nuts_last_year": 1860.0,
          "nuts_chains": 64, "nuts_depth": 2, "nuts_step_size": 0.01}
+#: the mesh phase: the MAGICC path's members on make_mesh() (the card), the
+#: uneven batch split into two shards of the card, the full-options graph's
+#: members and last year, the scenario cross product's members and years
+#: (1750-1850), the
+#: device-engine sampler's walkers, iterations and axis (1850 to this year),
+#: and NUTS's chains and axis (cut from the calibrate phase's 1850-1860 to keep
+#: the phase near two minutes: its backward is host-bound and two shards
+#: double it)
+MESH = {"members": 100_000, "uneven": 100_001, "shards": 2, "fullmagicc_members": 10_000,
+        "fullmagicc_last_year": 2000.0, "scenario_members": 10_000, "scenario_years": 101,
+        "walkers": 1024, "iterations": 2,
+        "sampler_last_year": 1900.0, "nuts_chains": 64, "nuts_last_year": 1855.0}
+#: a split run against the unsplit run of the same members, beyond index 0,
+#: and the split sampler's chain against the unsplit chain (rtol, atol: the
+#: JAX package's bar, tests/test_ensemble.py:342-345)
+MESH_TOL = (1e-12, 0.0)
 DEVICE = "cuda"
 #: kernel vs plain version, |kernel - plain| <= atol + rtol * |plain|.  Both do
 #: the same operations in the same order and the kernels are built with
@@ -347,21 +384,41 @@ def kernel_device_ms(fn, kernel, reps):
     ``kernel``, over ``reps`` calls of ``fn``, from torch.profiler: the
     kernel alone, without the host's launch overhead."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
+    # a cycle of ``reps`` calls while tracing starts, then the recorded one:
+    # the profiler can miss the first launches of a trace (PyTorch 2.11 on
+    # the H100 recorded 9 of 20 short lamcalc launches without this)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        for _ in range(2):
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
     rows = [e for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.key]
-    # the mean over the launches the profiler recorded (it may miss the
-    # first few while tracing starts)
-    if len(rows) != 1 or not reps // 2 <= rows[0].count <= reps:
+    if len(rows) > 1 or (rows and rows[0].count > reps):
         raise AssertionError(f"profiler found {[(e.key, e.count) for e in rows]} for {kernel}")
-    return rows[0].self_device_time_total / 1e3 / rows[0].count
+    if rows and rows[0].count >= reps // 2:
+        # the mean over the launches the profiler recorded
+        return rows[0].self_device_time_total / 1e3 / rows[0].count
+    # the profiler missed the launches (PyTorch 2.11 on the H100 recorded
+    # none of 20 short lamcalc launches in one run): CUDA events around the
+    # launches queued behind a spin kernel, so that the card runs them back
+    # to back and the span is theirs alone
+    log(f"  the profiler recorded {rows[0].count if rows else 0} of {reps} {kernel} launches: "
+        f"timed by CUDA events behind a spin kernel instead")
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(100_000_000)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 # ---------------------------------------------------------------------------
@@ -1397,8 +1454,12 @@ def phase_host_executor(smi, golden_base):
     model = build_udeb_model(years, erf, golden_base)
     udeb_year.launches = 0
     lamcalc.launches = 0
+    node = next(n for n in model.exec_order
+                if type(model.graph.nodes[n]).__name__ == "ClimateUDEB")
     t = time.perf_counter()
-    for _ in range(HOST_UDEB_STEPS):
+    for k in range(HOST_UDEB_STEPS):
+        if k == HOST_UDEB_STEPS - 1:  # the host state the last year starts from
+            before = copy.deepcopy(model.component_states[node])
         model.step()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t
@@ -1419,6 +1480,10 @@ def phase_host_executor(smi, golden_base):
             want = torch.as_tensor(np.asarray(other.collection.get_data(name).values())[1:])
             check_close(f"ClimateUDEB {name}: step() on the card vs {what}", got, want,
                         1e-10, 1e-10)
+    t = time.perf_counter()
+    host_methods(model, node, before, erf)
+    log(f"  the host-path methods of ClimateUDEB and OceanCarbon: {time.perf_counter() - t:.3f} "
+        f"s of wall on the host")
 
     # the host surface: checkpoints, TOML, layered configs, diagnostics
     for what, run in (("checkpoint and resume", host_checkpoint_resume),
@@ -1429,6 +1494,72 @@ def phase_host_executor(smi, golden_base):
         t = time.perf_counter()
         run(smi)
         log(f"  host surface, {what}: {time.perf_counter() - t:.3f} s of wall on {smi}")
+
+
+def host_methods(model, node, before, erf):
+    """The eleven host-path methods of ClimateUDEB and OceanCarbon, each
+    called once on host values: the ClimateUDEB ones on the host copy of the
+    state ``step()`` left on the card (``before``: the state its last year
+    started from).  Where the card's solve wrote the same quantity they are
+    held against it at rtol 1e-10: the ocean heat content, the heat uptake
+    (from the lambdas LAMCALC gives for the adjusted ECS) and the SST->air
+    map of both columns.  ``solve_ocean``'s pCO2 must follow from its own
+    history through ``calculate_delta_dic``."""
+    import numpy as np
+    import torch
+
+    from rscm_tpu_torch.magicc.carbon.ocean import OceanCarbon
+
+    comp = model.graph.nodes[node]
+    state = model.component_states[node]
+    last = HOST_UDEB_STEPS
+
+    def written(name):
+        return torch.as_tensor(np.asarray(model.collection.get_data(name).values())[last])
+
+    def held(what, got, name):
+        check_close(f"{what} on the host vs the card's {name}",
+                    torch.tensor(got, dtype=torch.float64), written(name), 1e-10, 0.0)
+
+    held("calculate_ocean_heat_content", [comp.calculate_ocean_heat_content(state)],
+         "Ocean Heat Content")
+    surface = written("Surface Temperature")
+    air = [comp.sst_to_air_temperature(state["ocean_temps"][h][0]) for h in (0, 1)]
+    check_close("sst_to_air_temperature of both columns on the host vs the card's ocean boxes",
+                torch.tensor(air, dtype=torch.float64), surface[[0, 2]], 1e-10, 0.0)
+    adjusted = comp.adjusted_ecs((erf[last - 1] + erf[last]) / 2.0, before)
+    lam = comp._run_lamcalc(adjusted)
+    forcing = comp.apply_efficacy_and_qfrac(erf[last], lam.co2_internal_efficacy)
+    held("calculate_heat_uptake", [comp.calculate_heat_uptake(
+        forcing, surface.numpy(), lam.lambda_ocean, lam.lambda_land)], "Heat Uptake")
+    # the pieces no output shows, on a copy: one month of the northern column
+    scratch = copy.deepcopy(state)
+    kappas = comp.layer_diffusivities(scratch, 0)
+    sst = comp.step_hemisphere(scratch, 0, forcing[0], 1.0 / 12.0, lam.lambda_ocean,
+                               lam.lambda_land, scratch["hemi_heat_exchange"][0],
+                               scratch["ground_temps"][0], scratch["alpha_eff"][0])
+    land = comp.calculate_land_temperature(comp.sst_to_air_temperature(sst), forcing[1],
+                                           comp.global_box_fractions()[1], lam.lambda_land)
+    comp.update_upwelling(scratch, float(surface.numpy() @ np.asarray(comp.global_box_fractions())))
+    log(f"  ClimateUDEB host pieces: adjusted ECS {adjusted:.6f} K (ecs {comp.ecs}), diffusivities "
+        f"{kappas[0]:.3f}..{kappas[-1]:.3f} m2/yr, one more month: SST {sst:.6f} K, land "
+        f"{land:.6f} K, upwelling {scratch['upwelling_rates'].tolist()} m/yr")
+    if not (np.all(np.isfinite(kappas)) and np.isfinite(sst) and np.isfinite(land)
+            and np.all(scratch["upwelling_rates"] > 0)):
+        raise AssertionError("ClimateUDEB host pieces: non-finite values")
+
+    ocean = OceanCarbon(engine="ring")
+    history, pco2, cumulative, flux = ocean.solve_ocean(
+        ocean.create_initial_state()["flux_history"], 400.0, 0.5, ocean.pco2_pi, 0.0, 1.0)
+    implied = ocean.ocean_pco2_value(
+        ocean.delta_pco2_from_dic(ocean.calculate_delta_dic(history)), 0.5)
+    log(f"  OceanCarbon.solve_ocean, a year at 400 ppm: flux {flux:.6f} GtC/yr, cumulative "
+        f"{cumulative:.6f} GtC, pCO2 {pco2:.6f} ppm (from its history {float(implied):.6f})")
+    check_close("solve_ocean's pCO2 vs calculate_delta_dic of its history",
+                torch.tensor([pco2], dtype=torch.float64),
+                torch.tensor([float(implied)], dtype=torch.float64), 1e-10, 0.0)
+    if not (flux > 0.0 and cumulative > 0.0 and pco2 > ocean.pco2_pi):
+        raise AssertionError("OceanCarbon.solve_ocean: no uptake under elevated CO2")
 
 
 def reset_launches():
@@ -1710,6 +1841,204 @@ def host_cost_analysis(smi, golden_base):
     log(f"  cost_analysis on the card: {costs}")
     if costs["kernel launches"] != {"udeb_year": HOST_UDEB_STEPS, "lamcalc": HOST_UDEB_STEPS}:
         raise AssertionError(f"cost_analysis saw launches {costs['kernel launches']}")
+
+
+def phase_mesh(smi):
+    """The batch split over a device mesh: ``make_mesh()`` (every card: one
+    here) and two shards of the card (``make_mesh(devices=["cuda:0"] * 2)``),
+    each against the unsplit run of the same members."""
+    import numpy as np
+    import torch
+
+    from rscm_tpu_torch.calibrate import EnsembleSampler, NUTSSampler, SamplerState, WalkerInit
+    from rscm_tpu_torch.magicc.calibration import magicc_calibration
+    from rscm_tpu_torch.magicc.coupled import build_magicc_model
+    from rscm_tpu_torch.ops import build
+    from rscm_tpu_torch.parallel import EnsembleRunner, make_mesh
+
+    def timed(what, fn, n_launches):
+        reset_launches()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        expect_launches(f"{what} ({wall:.3f} s)", n_launches)
+        return out, wall
+
+    def agree(what, split, plain):
+        """Finite, the same shape, within MESH_TOL beyond index 0."""
+        for name, want in plain.items():
+            got = split[name]
+            if tuple(got.shape) != tuple(want.shape) or not bool(torch.isfinite(got[:, 1:]).all()):
+                raise AssertionError(f"{what} {name}: shape {tuple(got.shape)} against "
+                                     f"{tuple(want.shape)}, or non-finite values")
+            check_close(f"{what} {name}, split vs unsplit beyond index 0 "
+                        f"({'bit-equal' if torch.equal(got[:, 1:], want[:, 1:]) else 'not bit-equal'})",
+                        got[:, 1:], want[:, 1:], *MESH_TOL)
+
+    one = make_mesh()
+    card = torch.device("cuda", torch.cuda.current_device())
+    two = make_mesh(devices=[card] * MESH["shards"])
+    log(f"  make_mesh(): {one.size} device(s) {[str(d) for d in one.devices]}; the split mesh: "
+        f"{[str(d) for d in two.devices]}")
+    if one.size != torch.cuda.device_count():
+        raise AssertionError(f"make_mesh() took {one.size} of {torch.cuda.device_count()} cards")
+
+    # the MAGICC path on make_mesh(): bit-equal to the unsplit run
+    ocean_params = {"history_dtype": "bfloat16"}
+    runner = EnsembleRunner(build_magicc_model(ocean_params=ocean_params))
+    n_steps = len(runner.model.time_axis) - 1
+    sweep = magicc_sweep(MESH["uneven"])
+    b = MESH["members"]
+    even = {k: v[:b] for k, v in sweep.items()}
+    plain, wall = timed(f"MAGICC {b} members x {n_steps + 1} years, unsplit",
+                        lambda: runner.run(runner.batched_params(even), out_vars=MAGICC_OUT),
+                        n_steps)
+    split, wall_one = timed(f"MAGICC {b} members on make_mesh()", lambda: runner.run(
+        runner.batched_params(even, mesh=one), mesh=one, out_vars=MAGICC_OUT),
+        n_steps * one.size)
+    for name in MAGICC_OUT:
+        assert_bit_equal(f"MAGICC {b} members {name}, make_mesh() vs unsplit", split[name],
+                         plain[name])
+    log(f"  MAGICC {b} members: unsplit {wall:.3f} s, on make_mesh() {wall_one:.3f} s on {smi}")
+    del plain, split
+
+    # the uneven batch in two shards of the card: one member of padding
+    b = MESH["uneven"]
+    plain, wall = timed(f"MAGICC {b} members, unsplit", lambda: runner.run(
+        runner.batched_params(sweep), out_vars=MAGICC_OUT), n_steps)
+    split, wall_two = timed(f"MAGICC {b} members in {two.size} shards", lambda: runner.run(
+        runner.batched_params(sweep, mesh=two), mesh=two, out_vars=MAGICC_OUT),
+        n_steps * two.size)
+    agree(f"MAGICC {b} members", split, plain)
+    log(f"  MAGICC {b} members x {n_steps + 1} years: unsplit {wall:.3f} s "
+        f"({b * n_steps / wall:.4e} member-years/s), {two.size} shards of the card "
+        f"{wall_two:.3f} s ({b * n_steps / wall_two:.4e} member-years/s, "
+        f"{wall_two / wall:.2f}x) on {smi}")
+    del plain, split, runner
+
+    # the full-options graph
+    b = MESH["fullmagicc_members"]
+    full = EnsembleRunner(build_magicc_model(
+        years=np.arange(1850.0, MESH["fullmagicc_last_year"] + 1.0), include_permafrost=True,
+        include_slr=True, ocean_params=ocean_params))
+    n_steps = len(full.model.time_axis) - 1
+    rng = np.random.default_rng(FULLMAGICC["seed"])
+    fsweep = {"ClimateUDEB.ecs": rng.uniform(1.8, 5.5, b),
+              "Permafrost.arctic_amplification": rng.uniform(1.5, 2.5, b)}
+    plain, wall = timed(f"full-options {b} members, unsplit", lambda: full.run(
+        full.batched_params(fsweep), out_vars=FULLMAGICC_OUT), n_steps)
+    split, wall_two = timed(f"full-options {b} members in {two.size} shards", lambda: full.run(
+        full.batched_params(fsweep, mesh=two), mesh=two, out_vars=FULLMAGICC_OUT),
+        n_steps * two.size)
+    agree(f"full-options {b} members", split, plain)
+    log(f"  full-options {b} members x {n_steps + 1} years: unsplit {wall:.3f} s, "
+        f"{two.size} shards {wall_two:.3f} s on {smi}")
+    del plain, split, full
+
+    # the scenario cross product: the batched exo rows split with the members
+    n, n_scen, n_years = MESH["scenario_members"], SCENARIOS["scenarios"], MESH["scenario_years"]
+    b = n * n_scen
+    scen = EnsembleRunner(build_flagship(n_years))
+    rng = np.random.default_rng(SCENARIOS["seed"])
+    member = {"TwoLayer.lambda0": rng.uniform(0.8, 1.8, n),
+              "CarbonCycle.tau": rng.uniform(15.0, 60.0, n)}
+    params = scen.batched_params({k: np.tile(v, n_scen) for k, v in member.items()})
+    exo = {"Emissions|CO2|Anthropogenic": torch.as_tensor(
+        ssp_scenarios(n_years, n_scen), dtype=torch.float64, device=DEVICE
+    ).repeat_interleave(n, dim=0)}
+    plain, wall = timed(f"scenarios {b} members x {n_years} years, unsplit",
+                        lambda: scen.run(params, exo=exo, out_vars=SCENARIOS_OUT), 0)
+    split, wall_two = timed(f"scenarios {b} members in {two.size} shards", lambda: scen.run(
+        params, exo=exo, mesh=two, out_vars=SCENARIOS_OUT), 0)
+    agree(f"scenarios {b} members", split, plain)
+    log(f"  scenarios {b} members x {n_years} years: unsplit {wall:.3f} s, {two.size} shards "
+        f"{wall_two:.3f} s on {smi}")
+    del plain, split, scen, exo
+
+    # the device-engine sampler: the same seed gives the same chain
+    years = np.arange(1850.0, MESH["sampler_last_year"] + 1.0)
+    calib = magicc_calibration(years=years)
+    cut_steps = len(years) - 1
+    its, walkers = MESH["iterations"], MESH["walkers"]
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    runs = {}
+    for label, mesh in (("unsplit", None), (f"{two.size} shards", two)):
+        sampler = EnsembleSampler(calib.params, calib.runner, calib.likelihood, calib.target)
+        path = str(build.BUILD_DIR / f"mesh_{label.replace(' ', '_')}")
+        chain, wall = timed(
+            f"ensemble sampler, {walkers} walkers x {its} iterations, {label}",
+            lambda: sampler.run_with_checkpoint(
+                n_iterations=its, init=WalkerInit.from_prior(), thin=1, checkpoint_every=its,
+                checkpoint_path=path, n_walkers=walkers, seed=21, engine="device", mesh=mesh),
+            cut_steps * (1 + 2 * its) * (1 if mesh is None else mesh.size))
+        state = SamplerState.load_checkpoint(path + ".state")
+        runs[label] = (chain, state)
+        log(f"  ensemble sampler {label}: {wall:.3f} s, {walkers * (1 + its) / wall:.1f} model "
+            f"evaluations a second, acceptance {state.mean_acceptance_rate():.4f} on {smi}")
+    (chain, state), (s_chain, s_state) = runs.values()
+    samples, s_samples = chain.flat_samples(discard=0), s_chain.flat_samples(discard=0)
+    if samples.shape != (its * walkers, len(calib.param_names)) or not np.all(np.isfinite(s_samples)):
+        raise AssertionError(f"split sampler chain: shape {s_samples.shape}, or non-finite")
+    check_close("ensemble sampler chain, split vs unsplit", torch.as_tensor(s_samples),
+                torch.as_tensor(samples), *MESH_TOL)
+    # the log posteriors: a shard's values must be those of its walkers run
+    # as a batch of their own, bit for bit; against the whole batch they
+    # may differ where the model's thresholds (LAMCALC's convergence, its
+    # fallback) turn a last-place difference of a reduction whose order
+    # depends on the batch size into another branch: those are logged
+    lp, s_lp = chain.flat_log_probs(), s_chain.flat_log_probs()
+    lp_fn = EnsembleSampler(calib.params, calib.runner, calib.likelihood,
+                            calib.target)._build_device_log_prob()
+    final = calib.runner.as_theta(s_state.positions)
+    half = walkers // two.size
+    with torch.no_grad():
+        whole = lp_fn(final)
+        split = lp_fn(final, mesh=two)
+        shards = torch.cat([lp_fn(final[k * half:(k + 1) * half]) for k in range(two.size)])
+    assert_bit_equal(f"log posterior of the final {walkers} walkers in {two.size} shards vs the "
+                     f"same shards run as batches of their own", split, shards)
+    for what, a, b in (("the final walkers, split vs one batch", split.cpu().numpy(),
+                        whole.cpu().numpy()),
+                       ("the chains' log posteriors, split vs unsplit", s_lp, lp)):
+        finite = np.isfinite(a) & np.isfinite(b)
+        rel = np.abs(a[finite] - b[finite]) / np.maximum(np.abs(b[finite]), 1e-300)
+        log(f"  {what}: {int((rel > 1e-10).sum())} of {a.size} beyond rtol 1e-10, max relative "
+            f"difference {rel.max(initial=0.0):.3e}, "
+            f"{int((np.isfinite(a) != np.isfinite(b)).sum())} differ in finiteness")
+    if not np.array_equal(state.n_accepted, s_state.n_accepted):
+        raise AssertionError(f"acceptance counts differ: {state.n_accepted.sum()} against "
+                             f"{s_state.n_accepted.sum()}")
+    log(f"  split sampler: the same acceptance counts ({int(state.n_accepted.sum())} of "
+        f"{int(state.n_proposed.sum())} proposals)")
+    del calib, runs
+
+    # NUTS with its chains split over the shards (reverse-mode gradients)
+    years = np.arange(1850.0, MESH["nuts_last_year"] + 1.0)
+    nuts_cut = magicc_calibration(years=years)
+    nuts = NUTSSampler(nuts_cut.params, nuts_cut.runner, nuts_cut.likelihood, nuts_cut.target,
+                       max_tree_depth=CALIB["nuts_depth"], grad_mode="rev")
+    c, d = MESH["nuts_chains"], len(nuts_cut.param_names)
+    init = nuts_cut.theta_true * (
+        1.0 + 0.01 * np.random.default_rng(6).uniform(-1.0, 1.0, (c, d)))
+    reset_launches()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    chain = nuts.run(n_iterations=1, n_chains=c, warmup=1, seed=5, init_positions=init,
+                     step_size=CALIB["nuts_step_size"], mesh=two)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    diag = nuts.last_diagnostics
+    expect_launches(f"NUTS, {c} chains in {two.size} shards",
+                    (len(years) - 1) * diag["n_gradient_evals"] * two.size)
+    samples = chain.flat_samples()
+    log(f"  NUTS, {c} chains in {two.size} shards, depth {CALIB['nuts_depth']}, 1 warmup + 1 "
+        f"transition, {len(years)} years: {wall:.3f} s, {diag['n_gradient_evals']} batched "
+        f"value-and-gradient evaluations ({wall / diag['n_gradient_evals']:.3f} s each), "
+        f"{diag['n_divergences']} divergences on {smi}")
+    if samples.shape != (c, d) or not np.all(np.isfinite(samples)):
+        raise AssertionError(f"split NUTS samples: shape {samples.shape}, or non-finite")
 
 
 def phase_timing(smi, runner, params, launches, n_steps, errs, div_instr):
@@ -2057,7 +2386,7 @@ def phase_calibrate(smi):
             raise AssertionError(f"{label}: the checkpoint did not round-trip")
         records[label] = wall
 
-    # 5. NUTS at its own 1850-1875 cut, reverse-mode gradients
+    # 5. NUTS at its own 1850-1860 cut, reverse-mode gradients
     nuts_years = np.arange(1850.0, CALIB["nuts_last_year"] + 1.0)
     nuts_cut = magicc_calibration(years=nuts_years)
     nuts_steps = len(nuts_years) - 1
@@ -2094,7 +2423,7 @@ def phase_calibrate(smi):
     }
 
 
-PHASES = ("main", "second", "magicc", "flagship", "scenarios", "fullmagicc", "host",
+PHASES = ("main", "second", "magicc", "flagship", "scenarios", "fullmagicc", "host", "mesh",
           "calibrate")
 
 
@@ -2137,6 +2466,9 @@ def main(selected):
             _, _, config = read_golden("10_full_default")
             phase_host_executor(smi, {"ecs": config["core_climatesensitivity"],
                                       "rf_2xco2": config["core_delq2xco2"]})
+    if "mesh" in run:
+        with Phase("mesh"):
+            phase_mesh(smi)
     if "calibrate" in run:
         with Phase("calibrate"):
             calib = phase_calibrate(smi)

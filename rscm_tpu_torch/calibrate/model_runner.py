@@ -197,10 +197,14 @@ class CompiledModelRunner(ModelRunner):
 
     # -- the differentiable core ------------------------------------------------
 
-    def as_theta(self, theta) -> torch.Tensor:
-        """``theta`` as a tensor of the run's dtype on its device (a tensor
-        already there is returned as it is, so its gradient is kept)."""
-        return torch.as_tensor(theta, dtype=self.program.dtype, device=self.device)
+    def as_theta(self, theta, device=None) -> torch.Tensor:
+        """``theta`` as a tensor of the run's dtype on ``device`` (the
+        runner's by default; a tensor already there is returned as it is, so
+        its gradient is kept)."""
+        device = self.device if device is None else device
+        if isinstance(theta, torch.Tensor):
+            return theta.to(dtype=self.program.dtype, device=device)
+        return torch.as_tensor(theta, dtype=self.program.dtype, device=device)
 
     def params_pytree(self, theta):
         """The program's parameter dict with a ``(B, D)`` batch (or a
@@ -213,17 +217,21 @@ class CompiledModelRunner(ModelRunner):
                 out[node_key][pname] = thetas[:, j]
         return out
 
-    def trajectories_fn(self):
+    def trajectories_fn(self, mesh=None):
         """Function: theta ``(D,)`` -> ``{var: (n_steps, g)}``, or ``(B, D)``
         -> ``{var: (B, n_steps, g)}``, on tensors; gradients flow from a
         ``theta`` that requires them (reverse mode) or is dual (forward
-        mode, ``torch.autograd.forward_ad``)."""
+        mode, ``torch.autograd.forward_ad``).  With a ``mesh``
+        (:func:`~rscm_tpu_torch.parallel.make_mesh`) the batch is split over
+        its devices (:meth:`EnsembleRunner.run`) and theta and the
+        trajectories live on its first device."""
         out_vars = self.output_variables
+        device = None if mesh is None else mesh.devices[0]
 
         def fn(theta):
-            theta = self.as_theta(theta)
+            theta = self.as_theta(theta, device)
             out = self.ensemble.run(
-                self.params_pytree(theta), out_vars=out_vars, stream=self.stream
+                self.params_pytree(theta), out_vars=out_vars, stream=self.stream, mesh=mesh
             )
             if theta.dim() == 1:
                 return {name: out[name][0] for name in out_vars}

@@ -43,6 +43,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..utils.target import mesh_context
 from .chain import Chain
 from .gradients import value_and_grad
 from .likelihood import GaussianLikelihood, LikelihoodFn
@@ -111,8 +112,9 @@ class NUTSSampler:
     # dual averaging collapses the step size; logit/exp transforms remove
     # the walls entirely, with the log-Jacobian folded into the density.
 
-    def _build_transforms(self):
-        like = dict(dtype=self.runner.program.dtype, device=self.runner.device)
+    def _build_transforms(self, device=None):
+        device = self.runner.device if device is None else device
+        like = dict(dtype=self.runner.program.dtype, device=device)
         lower, upper = self.params.bounds()
         lower = np.asarray(lower, dtype=np.float64)
         upper = np.asarray(upper, dtype=np.float64)
@@ -186,7 +188,7 @@ class NUTSSampler:
         n_rows = 1 << max_depth  # row 0 = start state; stage d -> [2^d, 2^(d+1))
         D = int(n_params)
         C = int(n_chains)
-        like = dict(dtype=self.runner.program.dtype, device=self.runner.device)
+        like = dict(dtype=self.runner.program.dtype, device=gen.device)
         counts = {"steps": 0}
 
         def safe_grad(q):
@@ -381,25 +383,35 @@ class NUTSSampler:
         and ``n_gradient_evals`` the batched value-and-gradient evaluations
         (the leapfrog steps and one at the start).
 
-        ``mesh`` is kept for API parity (the JAX package shards the chains
-        over a device mesh with it); the port runs on one card, and a mesh
-        raises.  ``dispatch_chunk`` is validated as in the JAX package,
-        where it caps the iterations in one device program to fence a
-        TPU-worker fault; the port runs one transition at a time, and the
-        argument changes nothing.
+        ``mesh`` (:func:`~rscm_tpu_torch.parallel.make_mesh`) splits the
+        chains over the mesh's devices in every batched value-and-gradient;
+        ``n_chains`` must divide by ``mesh.size``.  The chains' state and
+        draws live on the mesh's first device.  ``dispatch_chunk`` is
+        validated as in the JAX package, where it caps the iterations in one
+        device program to fence a TPU-worker fault; the port runs one
+        transition at a time, and the argument changes nothing.
         """
-        if mesh is not None:
-            raise NotImplementedError(
-                "NUTSSampler: the port runs on one card; sharding the chains "
-                "across cards is not ported yet"
-            )
         _check_dispatch_chunk(dispatch_chunk)
-        like = dict(dtype=self.runner.program.dtype, device=self.runner.device)
+        device = self.runner.device
+        if mesh is not None:
+            if n_chains % mesh.size != 0:
+                raise ValueError(
+                    f"mesh-split NUTS needs n_chains divisible by the device "
+                    f"count ({mesh.size}), got {n_chains}"
+                )
+            device = mesh.devices[0]
+        with mesh_context(mesh):
+            return self._run(n_iterations, n_chains, warmup, thin, seed, init_positions,
+                             step_size, mesh, inv_mass, device)
+
+    def _run(self, n_iterations, n_chains, warmup, thin, seed, init_positions, step_size,
+             mesh, inv_mass, device):
+        like = dict(dtype=self.runner.program.dtype, device=device)
         rng = np.random.default_rng(seed)
         names = self.params.param_names()
         D = len(names)
 
-        to_theta, to_x = self._build_transforms()
+        to_theta, to_x = self._build_transforms(device)
 
         if init_positions is None:
             init_positions = self.params.sample_random(n_chains, rng)
@@ -415,7 +427,7 @@ class NUTSSampler:
 
         def logp_x(x):
             theta, logj = to_theta(x)
-            return base_logp(theta) + logj
+            return base_logp(theta, mesh=mesh) + logj
 
         # initial diagonal mass matrix: caller-provided (x-space posterior
         # variances, e.g. from mass_from_covariance on a Laplace fit) or the

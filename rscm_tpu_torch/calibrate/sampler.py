@@ -23,6 +23,7 @@ Two engines:
 
 from __future__ import annotations
 
+import functools
 import os
 from dataclasses import dataclass
 from typing import Callable, List, Optional
@@ -30,6 +31,7 @@ from typing import Callable, List, Optional
 import numpy as np
 import torch
 
+from ..utils.target import mesh_context
 from .chain import Chain
 from .likelihood import GaussianLikelihood, LikelihoodFn
 from .model_runner import CompiledModelRunner, ModelRunner
@@ -357,9 +359,12 @@ class EnsembleSampler:
         likelihood = self.likelihood
         params = self.params
 
-        def log_prob(theta):
+        def log_prob(theta, mesh=None):
+            """``mesh`` splits the model run over its devices; theta, the
+            prior and the likelihood stay on its first device."""
+            fn = traj_fn if mesh is None else self.runner.trajectories_fn(mesh)
             lp = params.log_prior(theta)
-            trajectories = traj_fn(theta)
+            trajectories = fn(theta)
             ll = likelihood.ln_likelihood_traced(trajectories, compiled_target)
             total = lp + ll
             return torch.where(torch.isfinite(total), total, torch.full_like(total, -np.inf))
@@ -382,9 +387,12 @@ class EnsembleSampler:
     ) -> Chain:
         """Sample; ``engine`` in {None (auto), "device", "host"}.
 
-        ``mesh`` is kept for API parity: the JAX package shards the walker
-        axis over a device mesh with it.  The port runs on one card, and a
-        mesh raises.
+        ``mesh`` (device engine only;
+        :func:`~rscm_tpu_torch.parallel.make_mesh`) splits each half's
+        posterior evaluation over the mesh's devices; ``n_walkers`` must
+        divide by ``2 * mesh.size``.  The proposals are drawn on the mesh's
+        first device, so with the same seed the chain is the unsplit one.
+        The host engine ignores ``mesh``, as in the JAX package.
         """
         n_walkers = n_walkers or self.default_n_walkers
         rng = np.random.default_rng(seed)
@@ -596,14 +604,18 @@ class EnsembleSampler:
         self, log_prob, state, chain, n_iterations, rng, progress_callback,
         checkpoint_every=None, checkpoint_path=None, mesh=None,
     ):
-        if mesh is not None:
-            raise NotImplementedError(
-                "EnsembleSampler: the port runs on one card; splitting the walkers "
-                "across cards is not ported yet"
-            )
         runner = self.runner
         dtype, device = runner.program.dtype, runner.device
         n_walkers, n_params = state.positions.shape
+        if mesh is not None:
+            if n_walkers % (2 * mesh.size) != 0:
+                raise ValueError(
+                    f"mesh-split device engine needs n_walkers divisible by "
+                    f"2 x n_devices (= {2 * mesh.size}), got {n_walkers}"
+                )
+            # the proposals, draws and bookkeeping live on the anchor device
+            device = mesh.devices[0]
+            log_prob = functools.partial(log_prob, mesh=mesh)
         half = n_walkers // 2
         move = self.move
         is_de = isinstance(move, DEMove)
@@ -664,7 +676,7 @@ class EnsembleSampler:
             n_accepted[act] += accept.to(n_accepted.dtype)
             return positions, log_probs, n_accepted
 
-        with torch.no_grad():
+        with torch.no_grad(), mesh_context(mesh):
             positions = torch.as_tensor(state.positions, **like)
             if state.iteration == 0 or not np.all(np.isfinite(state.log_probs)):
                 log_probs = log_prob(positions)

@@ -26,6 +26,7 @@ Checkpoint migration between engines is not ported yet.
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 
 import numpy as np
@@ -275,6 +276,47 @@ class OceanCarbon(Component):
 
     def calculate_flux(self, pco2_atm, pco2_ocn):
         return self.gas_exchange_rate() * (pco2_atm - pco2_ocn)
+
+    def calculate_delta_dic(self, flux_history):
+        """IRF convolution of a newest-first host history (dt = 1 month)."""
+        flux_history = np.asarray(flux_history, dtype=np.float64)
+        table = self.irf_table()[: flux_history.shape[-1]]
+        return float(np.dot(flux_history, table) * self.dic_conversion_factor())
+
+    def solve_ocean(self, flux_history, co2_atm, delta_sst, pco2_initial,
+                    cumulative_initial, dt):
+        """One yearly update of the IRF-convolved ocean uptake on host
+        values, in float64: the TPU package's newest-first contract, run
+        through the year loop's ring solve at one member.
+
+        ``flux_history`` is newest-first (at most ``max_history_months``
+        entries; a shorter one reads as zeros beyond its end).  Returns
+        ``(flux_history, pco2, cumulative, flux)``: the history with the
+        year's twelve months in front (newest first) and its oldest twelve
+        dropped, and host floats.
+        """
+        n = int(self.max_history_months)
+        steps = int(self.steps_per_year)
+        host = np.asarray(flux_history, dtype=np.float64)
+        if host.shape[-1] > n:
+            raise ValueError(
+                f"OceanCarbon.solve_ocean: {host.shape[-1]} months of history, the "
+                f"window holds {n}"
+            )
+        padded = np.zeros(n)
+        padded[: host.shape[-1]] = host
+        # entering at step 0, the ring's slot p holds the month aged n-1-p;
+        # the year writes slots 0..steps-1, and leaving at step 1 reads
+        # them back newest first
+        ring = self._to_loop_layout({"flux_history": torch.as_tensor(padded)}, 0)
+        member = functools.partial(torch.tensor, dtype=torch.float64)
+        ring, pco2, cumulative, flux = self._solve_ocean_circular(
+            ring["flux_history"], member([float(co2_atm)]), member([float(delta_sst)]),
+            member([float(pco2_initial)]), member([float(cumulative_initial)]), dt, 0,
+        )
+        newest = self._to_host_layout({"flux_history": ring[0]}, 1)["flux_history"]
+        out = newest.numpy()[: max(host.shape[-1], steps)]
+        return out, float(pco2[0]), float(cumulative[0]), float(flux[0])
 
     # -- engine selection ------------------------------------------------------
 

@@ -35,6 +35,7 @@ from rscm_tpu_torch.core.component import (
 )
 from rscm_tpu_torch.core.spatial import FourBoxRegion
 from rscm_tpu_torch.core.state import FourBoxSlice
+from rscm_tpu_torch.utils.linear_algebra import thomas_solve
 
 from .lamcalc import LamcalcParams, compute_qfrac, lamcalc
 
@@ -366,6 +367,201 @@ class ClimateUDEB(Component):
                 years_remaining = 0.0
         return cum_t
 
+    # -- host-path pieces (udeb/mod.rs, udeb/ocean_column.rs) ------------------
+    #
+    # The TPU package's host path, one member on host values (Python floats,
+    # numpy arrays, the ``create_initial_state()`` dict) in float64; they
+    # touch no device and mutate ``state`` where the TPU package does.  The
+    # formulas the batched solve also evaluates (the SST->air map, heat
+    # uptake, ocean heat content) are its own code at one member; the rest
+    # is host code, since the month kernel couples both hemispheres and
+    # computes the exchange and ground temperature that ``step_hemisphere``
+    # takes as given.
+
+    def apply_efficacy_and_qfrac(self, erf, co2_efficacy):
+        if self.efficacy_apply == 1:
+            erf_adjusted = erf * self.prescribed_efficacy_co2
+        elif self.efficacy_apply == 2 and np.isfinite(co2_efficacy) and co2_efficacy > 0:
+            erf_adjusted = erf * self.prescribed_efficacy_co2 / co2_efficacy
+        else:
+            erf_adjusted = erf
+        return np.asarray([erf_adjusted * q for q in self.co2_qfrac])
+
+    def adjusted_ecs(self, global_forcing, state):
+        """The time-varying ECS from the newest-first history of ``state``
+        and the year's mid-point forcing."""
+        cumt_2x = self.ecs * self.feedback_cumt_period
+        cum_t = self.cumulative_temperature(state["th_values"], state["th_dts"])
+        cumt_factor = (
+            1.0 + self.feedback_cumt_sensitivity * (cum_t - cumt_2x) / cumt_2x
+            if abs(cumt_2x) > 1e-15
+            else 1.0
+        )
+        q_factor = 1.0 + self.feedback_q_sensitivity * (
+            max(global_forcing, 0.0) - self.rf_2xco2
+        )
+        return self.ecs * cumt_factor * q_factor
+
+    def calculate_land_temperature(self, ocean_temp, land_forcing, land_fraction,
+                                   lambda_land):
+        numerator = land_forcing * land_fraction + self.k_lo * self.amplify_ocean_to_land * ocean_temp
+        denominator = lambda_land * land_fraction + self.k_lo
+        return min(numerator / denominator, self.max_temperature)
+
+    def sst_to_air_temperature(self, sst):
+        """Air temperature over the ocean for a sea-surface temperature
+        (the batched solve's map at one member)."""
+        return float(self._sst_to_air(torch.tensor([float(sst)], dtype=torch.float64))[0])
+
+    def layer_diffusivities(self, state, hemi):
+        n = self.n_layers
+        dz = self.layer_thickness
+        total_depth = self.mixed_layer_depth + (n - 1.0) * dz
+        t_top = state["ocean_temps"][hemi][0]
+        t_bottom = state["ocean_temps"][hemi][n - 1]
+        kappa_min = self.kappa_min_m2_per_yr()
+
+        depths = self.mixed_layer_depth + np.arange(n - 1) * dz
+        relative_depth = depths / total_depth
+        k = (
+            (1.0 - relative_depth) * self.kappa_dkdt * (t_top - t_bottom) + self.kappa
+        ) * DIFFUSIVITY_CM2S_TO_M2YR
+        return np.maximum(k, kappa_min)
+
+    def step_hemisphere(self, state, hemi, forcing, dt, lambda_ocean, lambda_land,
+                        hemi_heat_exchange, ground_temp, alpha_eff):
+        """One monthly implicit ocean-column step of one hemisphere
+        (``ocean_column.rs:81-240``); writes ``state["ocean_temps"][hemi]``
+        and returns its new SST."""
+        n = self.n_layers
+        kappas = self.layer_diffusivities(state, hemi)
+        w = state["upwelling_rates"][hemi]
+        dz = self.layer_thickness
+        dz_mix = self.mixed_layer_depth
+        pi_ratio = self.polar_sinking_ratio
+        af_top, af_bot, af_diff = self.af_top, self.af_bottom, self.af_diff
+        c_mix = self.mixed_layer_heat_capacity()
+
+        f_l_hemi = (self.nh_land_fraction if hemi == 0 else self.sh_land_fraction) / 2.0
+        f_o_hemi = 0.5 - f_l_hemi
+        denominator = f_o_hemi * (self.k_lo + f_l_hemi * lambda_land)
+        term_feedback = alpha_eff / c_mix * (
+            lambda_ocean
+            + lambda_land * self.k_lo * self.amplify_ocean_to_land * f_l_hemi / denominator
+        )
+        dz1 = dz / 2.0
+        term_diff = kappas[0] / (dz_mix * dz1) * dt
+        term_upwell = w / dz_mix * dt
+        forcing_amp = 1.0 + self.k_lo * f_l_hemi / denominator
+
+        a, b, c, d = (np.zeros(n) for _ in range(4))
+        temps = state["ocean_temps"][hemi]
+        b[0] = (
+            1.0
+            + term_feedback * dt * af_top[0]
+            + term_diff * af_bot[0]
+            + term_upwell * pi_ratio * af_bot[0]
+        )
+        c[0] = -(term_diff + term_upwell) * af_bot[0]
+        d[0] = temps[0] + (forcing * forcing_amp + hemi_heat_exchange) / c_mix * dt * af_top[0]
+        if self.land_heat_capacity_enabled:
+            land_temp = state["land_temps"][hemi]
+            d[0] -= (
+                self.k_lg * (land_temp - ground_temp) / (c_mix * f_o_hemi) * dt * af_top[0]
+            )
+        for i in range(1, n - 1):
+            dz_up = dz1 if i == 1 else dz
+            term_diff_up = kappas[i - 1] / (dz * dz_up) * dt
+            term_diff_down = kappas[i] / (dz * dz) * dt
+            term_upwell_layer = w / dz * dt
+            a[i] = -term_diff_up * af_top[i]
+            b[i] = (
+                1.0
+                + term_diff_up * af_top[i]
+                + term_diff_down * af_bot[i]
+                + term_upwell_layer * af_top[i]
+            )
+            c[i] = -(term_diff_down + term_upwell_layer) * af_bot[i]
+            d[i] = temps[i] + pi_ratio * term_upwell_layer * temps[0] * af_diff[i]
+        term_diff_up = kappas[n - 2] / (dz * dz) * dt
+        term_upwell_bottom = w / dz * dt
+        a[n - 1] = -term_diff_up * af_top[n - 1]
+        b[n - 1] = 1.0 + (term_diff_up + term_upwell_bottom) * af_top[n - 1]
+        d[n - 1] = temps[n - 1] + pi_ratio * term_upwell_bottom * temps[0] * af_top[n - 1]
+
+        delta_w = w - self.w_initial
+        if abs(delta_w) > 1e-15:
+            init = state["initial_ocean_profile"][hemi]
+            t_polar = state["polar_sinking_temp"]
+            d[0] += dt / dz_mix * delta_w * (init[1] - t_polar) * af_bot[0]
+            dt_per_dz = dt / dz
+            for i in range(1, n - 1):
+                d[i] += dt_per_dz * delta_w * (init[i + 1] * af_bot[i] - init[i] * af_top[i])
+                d[i] += dt_per_dz * delta_w * t_polar * af_diff[i]
+            d[n - 1] += dt_per_dz * delta_w * (t_polar - init[n - 1]) * af_top[n - 1]
+
+        state["ocean_temps"][hemi] = np.minimum(thomas_solve(a, b, c, d), self.max_temperature)
+        return state["ocean_temps"][hemi][0]
+
+    def update_upwelling(self, state, global_temp):
+        w_0 = self.w_initial
+        f_var = self.w_variable_fraction
+        w_min = w_0 * (1.0 - f_var)
+        for hemi, t_thresh in enumerate([self.w_threshold_temp_nh, self.w_threshold_temp_sh]):
+            w = w_0 * (1.0 - f_var * min(global_temp / t_thresh, 1.0))
+            state["upwelling_rates"][hemi] = max(w, w_min)
+
+    def calculate_heat_uptake(self, forcing, temperature, lambda_ocean, lambda_land):
+        """Global heat uptake from the four boxes' forcing and temperature
+        (the batched solve's formula at one member)."""
+        row = functools.partial(torch.tensor, dtype=torch.float64)
+        return float(self._heat_uptake(
+            row([list(np.asarray(forcing, dtype=np.float64))]),
+            row([list(np.asarray(temperature, dtype=np.float64))]),
+            row([float(lambda_ocean)]), row([float(lambda_land)]),
+        )[0])
+
+    def calculate_ocean_heat_content(self, state):
+        """Ocean heat content of both columns (the batched solve's formula
+        at one member)."""
+        temps = torch.as_tensor(np.asarray(state["ocean_temps"], dtype=np.float64))
+        return float(self._ocean_heat_content(temps[None])[0])
+
+    # -- formulas shared by the host pieces and the batched solve ---------------
+
+    def _sst_to_air(self, sst):
+        """The SST -> air temperature map on a ``(B,)`` tensor (alpha and
+        gamma may be per member)."""
+        like = dict(dtype=sst.dtype, device=sst.device)
+        alpha = torch.as_tensor(self.temp_adjust_alpha, **like).expand(sst.shape)
+        gamma = torch.as_tensor(self.temp_adjust_gamma, **like).expand(sst.shape)
+        nonzero = gamma.abs() > 1e-15
+        gamma_safe = torch.where(nonzero, gamma, torch.as_tensor(1.0, **like))
+        t_star = -(alpha - 1.0) / (2.0 * gamma_safe)
+        delta_max = alpha * t_star + gamma * t_star * t_star - t_star
+        quad = torch.where(sst < t_star, alpha * sst + gamma * sst * sst, sst + delta_max)
+        return torch.where(nonzero, quad, alpha * sst)
+
+    def _heat_uptake(self, forcing, temperature, lam_o, lam_l):
+        """Heat uptake ``(B,)`` from ``(B, 4)`` forcing and temperature and
+        ``(B,)`` ocean and land feedbacks."""
+        like = dict(dtype=forcing.dtype, device=forcing.device)
+        area = torch.as_tensor(self.global_box_fractions(), **like)
+        lambdas = (
+            torch.as_tensor([1.0, 0.0, 1.0, 0.0], **like) * lam_o[:, None]
+            + torch.as_tensor([0.0, 1.0, 0.0, 1.0], **like) * lam_l[:, None]
+        )
+        return (forcing * area).sum(-1) - (lambdas * temperature * area).sum(-1)
+
+    def _ocean_heat_content(self, ocean_temps):
+        """Ocean heat content ``(B,)`` of ``(B, 2, n)`` columns."""
+        rho_c = RHO_SEAWATER * CP_SEAWATER
+        return (
+            rho_c * self.mixed_layer_depth * (ocean_temps[:, 0, 0] + ocean_temps[:, 1, 0])
+            + rho_c * self.layer_thickness
+            * (ocean_temps[:, 0, 1:].sum(-1) + ocean_temps[:, 1, 1:].sum(-1))
+        ) / 2.0
+
     # -- the batched yearly solve (the TPU package's ``_solve_traced``) --------
 
     def solve_ctx(self, ctx, inputs, internal_state):
@@ -526,15 +722,6 @@ class ClimateUDEB(Component):
         else:
             eff_factor = M(1.0)
 
-        def sst_to_air(sst):
-            alpha, gamma = M(self.temp_adjust_alpha), M(self.temp_adjust_gamma)
-            nonzero = gamma.abs() > 1e-15
-            gamma_safe = torch.where(nonzero, gamma, C(1.0))
-            t_star = -(alpha - 1.0) / (2.0 * gamma_safe)
-            delta_max = alpha * t_star + gamma * t_star * t_star - t_star
-            quad = torch.where(sst < t_star, alpha * sst + gamma * sst * sst, sst + delta_max)
-            return torch.where(nonzero, quad, alpha * sst)
-
         # -- one year of monthly sub-steps (member-minor kernel layout) --------
         scal = torch.stack([
             M(v) for v in (
@@ -580,11 +767,11 @@ class ClimateUDEB(Component):
 
         def air_ratio(sst):
             tiny = sst.abs() < 1e-15
-            return torch.where(tiny, alpha, sst_to_air(sst) / torch.where(tiny, C(1.0), sst))
+            return torch.where(tiny, alpha, self._sst_to_air(sst) / torch.where(tiny, C(1.0), sst))
 
         new_alpha_eff = torch.stack([air_ratio(sst_nh), air_ratio(sst_sh)], dim=-1)
-        t_air_nho = sst_to_air(sst_nh)
-        t_air_sho = sst_to_air(sst_sh)
+        t_air_nho = self._sst_to_air(sst_nh)
+        t_air_sho = self._sst_to_air(sst_sh)
         surface_temperature = torch.stack(
             [t_air_nho, land_temps[:, 0], t_air_sho, land_temps[:, 1]], dim=-1
         )  # (B, 4)
@@ -635,15 +822,8 @@ class ClimateUDEB(Component):
         else:
             erf_adjusted = M(erf_end)
         forcing_end = erf_adjusted[:, None] * qfrac  # (B, 4)
-        lambdas = C([1.0, 0.0, 1.0, 0.0]) * lam_o[:, None] + C([0.0, 1.0, 0.0, 1.0]) * lam_l[:, None]
-        heat_uptake = (forcing_end * area).sum(-1) - (lambdas * surface_temperature * area).sum(-1)
-        rho_c = RHO_SEAWATER * CP_SEAWATER
-        dz = self.layer_thickness
-        dz_mix = self.mixed_layer_depth
-        ocean_heat_content = (
-            rho_c * dz_mix * (ocean_temps[:, 0, 0] + ocean_temps[:, 1, 0])
-            + rho_c * dz * (ocean_temps[:, 0, 1:].sum(-1) + ocean_temps[:, 1, 1:].sum(-1))
-        ) / 2.0
+        heat_uptake = self._heat_uptake(forcing_end, surface_temperature, lam_o, lam_l)
+        ocean_heat_content = self._ocean_heat_content(ocean_temps)
         sst = (sst_nh + sst_sh) / 2.0
 
         return (

@@ -8,7 +8,7 @@ from .linear_algebra import (
     thomas_solve_assoc,
     thomas_solve_batched,
 )
-from .target import resolve_device
+from .target import mesh_context, mesh_platform, resolve_device
 from .toml_writer import dumps_toml
 
 __all__ = [
@@ -19,4 +19,6 @@ __all__ = [
     "thomas_solve_assoc",
     "dumps_toml",
     "resolve_device",
+    "mesh_platform",
+    "mesh_context",
 ]

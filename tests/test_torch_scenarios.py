@@ -204,7 +204,7 @@ def test_refusals():
         runner.run(three, exo={"Surface Temperature": ssp_like_scenarios(years, 3)})
     with pytest.raises(ValueError, match="steps"):
         runner.run(three, exo={EMIS: ssp_like_scenarios(years, 3)[:, :-1]})
-    with pytest.raises(NotImplementedError, match="ROADMAP A.6"):
+    with pytest.raises(TypeError, match="must be a Mesh"):
         runner.run(three, mesh=object())
 
 
