@@ -6,9 +6,11 @@ Usage: ``python3 chip_smoke.py`` on a machine with a CUDA card and ``nvcc``.
 Phases, each printed with its elapsed time:
 
 1. device  -- the card's name and power limit (``nvidia-smi``), torch versions;
-2. build   -- both CUDA kernels built from ``rscm_tpu_torch/csrc`` (one ``nvcc``
-              each, run together), with the ``-Xptxas -v`` register/spill report
-              and ``udeb_year``'s launch configuration and occupancy; beside
+2. build   -- both CUDA sources built from ``rscm_tpu_torch/csrc`` (one ``nvcc``
+              each, run together: the forward, tangent and adjoint kernels of
+              ``udeb_year`` and ``lamcalc``), with the ``-Xptxas -v``
+              register/spill report and the launch configuration and
+              occupancy of ``udeb_year`` and its tangent and adjoint; beside
               them a probe of one IEEE division per dtype, built with the same
               flags, whose SASS (``cuobjdump -sass``) gives the instructions a
               division takes;
@@ -17,7 +19,17 @@ Phases, each printed with its elapsed time:
               ``udeb_year`` at B = 99,997 at n = 2, 3, 17, 50, 100 and its
               layer limit, and with a per-member initial profile at n = 3
               and 50; ``udeb_year`` must equal its plain version bit for bit
-              and raise one layer past its limit;
+              and raise one layer past its limit; then the four derivative
+              kernels (``udeb_year_jvp``, ``udeb_year_vjp``, ``lamcalc_jvp``,
+              ``lamcalc_vjp``) at B = 1, 512, 99,997 and 100,000 (n = 50),
+              over the layer counts at B = 512 up to each kernel's limit (one
+              past it raises), with a per-member profile at n = 3 and 50, in
+              float64 and float32: each tangent kernel against ``plain_jvp``
+              of the plain forward at KERNEL_TOL, each adjoint against its
+              explicit twin bit for bit and against autograd of the plain
+              forward at AUTOGRAD_TOL, a LAMCALC fallback member's
+              derivatives zero (``python3 chip_smoke.py kernels`` runs this
+              phase alone);
 4. main    -- the port's main path: a 100,000-member, 251-year ClimateUDEB
               ensemble driven by the 1pctCO2 forcing ramp, built with
               ``ModelBuilder`` and run by ``EnsembleRunner.run`` in float64;
@@ -37,8 +49,10 @@ Phases, each printed with its elapsed time:
               contraction (17e12 FP64 / 33.5e12 FP32 additions or
               multiplications a second: the kernels are built with
               ``-fmad=false``), a division counted at the FMA-pipe
-              instructions it takes; and ``lamcalc``'s device time on a batch
-              where every 64th member takes the fallback;
+              instructions it takes; ``lamcalc``'s device time on a batch
+              where every 64th member takes the fallback; and each derivative
+              kernel's device time a launch at B = 1, 8, 512 and 100,000 with
+              its bound (its plain version's time at 100,000);
 6. magicc  -- the ten-component emissions-driven MAGICC graph
               (``build_magicc_model``, 1850-2100, ``history_dtype="bfloat16"``,
               which resolves to the exp-sum ocean-carbon engine) at 100,000
@@ -117,22 +131,29 @@ Phases, each printed with its elapsed time:
               around each step: the log posterior of 1,024 prior walkers as
               one batched run (250 launches each; 16 walkers against the
               plain engines within rtol 1e-10); at the 1850-1900 cut, the MAP
-              objective's reverse-mode gradient at the truth (50 forward
-              launches each; walls, peak memory) and its checks: against the
-              plain engines within rtol 1e-9, forward mode along a seeded
-              direction at the JAX package's bfloat16 bar, and, with the flux
+              objective's reverse-mode gradient at the truth (50 launches of
+              each forward and each adjoint kernel; walls, peak memory) and
+              its checks: against the plain engines within rtol 1e-9, forward
+              mode along a seeded direction (50 launches of each tangent
+              kernel) at the JAX package's bfloat16 bar, and, with the flux
               history in float64, central differences of 16 perturbed
               walkers in one batched run within 1e-3 of its largest
-              component; one Adam step from the prior midpoint at the cut;
-              the device ensemble sampler, 1,024 walkers, two iterations
-              under the stretch and the DE move, with a checkpoint round
-              trip; NUTS, 64 chains, tree depth 2, one warmup iteration and
-              one transition at 1850-1860; each kernel's backward (the plain
-              version recomputed and differentiated) timed alone.
+              component, no derivative of a plain version taken on the card
+              (``plain_jvp.calls`` 0); each kernel's reverse-mode derivative
+              at B = 1 timed alone, through its adjoint kernel and through
+              its plain version differentiated under autograd; one Adam step
+              from the prior midpoint at the cut in reverse and in forward
+              mode (the default, ``fwd_threshold=32``); the device ensemble
+              sampler, 1,024 walkers, one iteration under the stretch and
+              the DE move, with a checkpoint round trip; NUTS, 64 chains,
+              tree depth 2, one warmup iteration and one transition at
+              1850-1860, with ``grad_mode="rev"`` and ``"auto"`` (forward
+              mode).
 
 ``python3 chip_smoke.py PHASE ...`` runs the device and build phases and the
-named later phases only (``kernels`` and ``timing`` go with ``main``), e.g.
-``python3 chip_smoke.py scenarios fullmagicc``.
+named later phases only (``kernels`` and ``timing`` go with ``main``;
+``kernels`` also runs alone), e.g. ``python3 chip_smoke.py scenarios
+fullmagicc``.
 
 Any failed check raises and the script exits non-zero.  The last three lines
 are the per-kernel JSON record, the ``nvidia-smi`` name/power line and
@@ -223,7 +244,7 @@ TWO_LAYER_LAYERS = ("configs/two-layer/defaults.toml",
 #: and initial step size (the default 0.1 diverges at once on this posterior
 #: from around the truth: 63 of 64 chains on the H100)
 CALIB = {"walkers": 1024, "checked": 16, "fd_rel_step": 1e-6, "cut_last_year": 1900.0,
-         "adam_steps": 1, "ensemble_iterations": 2, "nuts_last_year": 1860.0,
+         "adam_steps": 1, "ensemble_iterations": 1, "nuts_last_year": 1860.0,
          "nuts_chains": 64, "nuts_depth": 2, "nuts_step_size": 0.01}
 #: the mesh phase: the MAGICC path's members on make_mesh() (the card), the
 #: uneven batch split into two shards of the card, the full-options graph's
@@ -248,6 +269,19 @@ DEVICE = "cuda"
 #: the last place of each dtype.  udeb_year is held to exact equality.
 KERNEL_TOL = {"float64": (1e-12, 1e-12), "float32": (1e-5, 1e-5)}
 EXACT = (0.0, 0.0)
+#: each adjoint kernel against its explicit twin, which performs the kernel's
+#: operations in the kernel's order: held to exact equality
+TWIN_TOL = EXACT
+#: each adjoint kernel against autograd of the plain forward, which sums the
+#: cotangents by PyTorch's backward formulas and in its own order: in
+#: float64 within KERNEL_TOL; in float32 the two orders round apart by up to
+#: ~2e-5 on the scalar rows' cotangents (sums of ~1,200 terms, of order 50
+#: at 100,000 members on an H100), so the bar there is ten times
+#: KERNEL_TOL's
+AUTOGRAD_TOL = {"float64": KERNEL_TOL["float64"], "float32": (1e-4, 1e-4)}
+#: the derivative kernels' batches: a MAP gradient (one walker), one walker's
+#: eight forward-mode directions, 64 NUTS chains x 8, and the ensemble's
+GRAD_BATCHES = (1, 8, 512, N_MEMBERS)
 
 _T0 = time.perf_counter()
 
@@ -463,12 +497,13 @@ def phase_build(smi):
         log(f"  an IEEE division in {dn} takes {total} instructions, {pipe} of them on the "
             f"{dn[5:]}-bit FMA pipe (SASS of the division probe)")
     for dtype in (torch.float64, torch.float32):
-        for n in (50, SECOND["n_layers"]):
-            c = kernel_config(n, dtype)
-            warps = c["threads"] * c["blocks_per_sm"] // 32
-            log(f"  udeb_year occupancy, {str(dtype)[6:]}, n={n}: {c['threads']} threads a "
-                f"block, {c['shared_bytes']} shared bytes a block, {c['blocks_per_sm']} blocks "
-                f"({warps} warps) resident per SM [{smi}]")
+        for kernel in ("udeb_year", "udeb_year_jvp", "udeb_year_vjp"):
+            for n in (50, SECOND["n_layers"]):
+                c = kernel_config(n, dtype, kernel=kernel)
+                warps = c["threads"] * c["blocks_per_sm"] // 32
+                log(f"  {kernel} occupancy, {str(dtype)[6:]}, n={n}: {c['threads']} threads a "
+                    f"block, {c['shared_bytes']} shared bytes a block, {c['blocks_per_sm']} "
+                    f"blocks ({warps} warps) resident per SM [{smi}]")
     return div_instr
 
 
@@ -597,6 +632,114 @@ def phase_kernels():
             log(f"  n={limit + 1} in {dname} raises: {exc}")
         else:
             raise AssertionError(f"udeb_year took {limit + 1} layers in {dname}")
+    errs.update(derivative_kernel_checks())
+    return errs
+
+
+def seeded(shape, dtype, seed):
+    """Normal draws on the card from a seeded generator."""
+    import torch
+
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    return torch.randn(shape, generator=gen, dtype=dtype, device=DEVICE)
+
+
+def derivative_kernel_checks():
+    """The four derivative kernels against their plain versions on the card:
+    each tangent kernel against ``plain_jvp`` of the plain forward at
+    KERNEL_TOL, each adjoint kernel against its explicit twin at TWIN_TOL
+    and against autograd of the plain forward at AUTOGRAD_TOL; at the
+    gradients' batches and 99,997 members, over the layer counts and up to
+    each kernel's layer limit (one past it raises), with a broadcast and a
+    per-member initial profile, ``lamcalc`` with fallback members (zero
+    derivatives), in float64 and float32.  Returns ``{(kernel, B, dtype):
+    max abs err}`` against the plain versions."""
+    import functools
+
+    import torch
+
+    from rscm_tpu_torch.ops import lamcalc_kernel as lk
+    from rscm_tpu_torch.ops import udeb_month as um
+    from rscm_tpu_torch.ops.plain_grad import plain_jvp
+
+    def check_udeb(b, dtype, dname, n_layers, per_member_profile=False, vjp=True):
+        rtol, atol = KERNEL_TOL[dname]
+        st, scal, ocean, init, vec = udeb_inputs(b, dtype, seed=b + n_layers + 7,
+                                                 n_layers=n_layers,
+                                                 per_member_profile=per_member_profile)
+        primals = (scal, ocean, init, vec)
+        tangents = [seeded(x.shape, dtype, k) for k, x in enumerate(primals)]
+        if not per_member_profile:  # a broadcast tangent, staged like the profile
+            tangents[2] = seeded((2 * n_layers, 1), dtype, 2).expand(2 * n_layers, b)
+        what = f"{dname} B={b} n={n_layers}" + (" per-member profile" if per_member_profile
+                                                 else "")
+        got = um.udeb_year_jvp(st, primals, tangents)
+        want = plain_jvp(functools.partial(um.udeb_year_plain, st), primals, tangents)
+        torch.cuda.synchronize()
+        err_jvp = max(check_close(f"udeb_year_jvp {what} {name} vs plain_jvp", g, w, rtol, atol)
+                      for name, g, w in zip(("ocean", "vec"), got, want))
+        if not vjp:
+            return err_jvp, None
+        g_ocean, g_vec = seeded(ocean.shape, dtype, 11), seeded((8, b), dtype, 12)
+        got = um.udeb_year_vjp(st, *primals, g_ocean, g_vec)
+        twin = um.udeb_year_vjp_plain(st, *primals, g_ocean, g_vec)
+        xs = [x.detach().clone().requires_grad_(True) for x in primals]
+        auto = torch.autograd.grad(um.udeb_year_plain(st, *xs), xs, (g_ocean, g_vec))
+        torch.cuda.synchronize()
+        err_vjp = 0.0
+        for name, g, t, a in zip(("scal", "ocean", "init_prof", "vec"), got, twin, auto):
+            err_vjp = max(err_vjp, check_close(f"udeb_year_vjp {what} {name} vs its twin", g, t,
+                                               *TWIN_TOL))
+            check_close(f"udeb_year_vjp {what} {name} vs autograd", g, a,
+                        *AUTOGRAD_TOL[dname])
+        return err_jvp, err_vjp
+
+    def check_lamcalc(b, dtype, dname, fallback_every):
+        rtol, atol = KERNEL_TOL[dname]
+        lst, packed = lamcalc_inputs(b, dtype, seed=b + 3, fallback_every=fallback_every)
+        tangent, g_out = seeded(packed.shape, dtype, 21), seeded((3, b), dtype, 22)
+        got_t = lk.lamcalc_jvp(lst, packed, tangent)
+        want_t = plain_jvp(functools.partial(lk.lamcalc_plain, lst), (packed,), (tangent,))
+        got_g = lk.lamcalc_vjp(lst, packed, g_out)
+        twin = lk.lamcalc_vjp_plain(lst, packed, g_out)
+        x = packed.clone().requires_grad_(True)
+        (auto,) = torch.autograd.grad(lk.lamcalc_plain(lst, x), x, g_out)
+        _, iters = lk.lamcalc_plain_with_iterations(lst, packed)
+        torch.cuda.synchronize()
+        fallback = iters == lk.MAX_ITERATIONS - 1
+        what = f"{dname} B={b} ({int(fallback.sum())} members take the fallback)"
+        if bool(got_t[:, fallback].any()) or bool(got_g[:, fallback].any()):
+            raise AssertionError(f"lamcalc derivatives {what}: a fallback member's is not 0")
+        err_jvp = check_close(f"lamcalc_jvp {what} vs plain_jvp", got_t, want_t, rtol, atol)
+        err_vjp = check_close(f"lamcalc_vjp {what} vs its twin", got_g, twin, *TWIN_TOL)
+        check_close(f"lamcalc_vjp {what} vs autograd", got_g, auto, *AUTOGRAD_TOL[dname])
+        return err_jvp, err_vjp
+
+    errs = {}
+    for dtype in (torch.float64, torch.float32):
+        dname = str(dtype).split(".")[-1]
+        for b in (1, 512, RAGGED, N_MEMBERS):
+            errs[("udeb_year_jvp", b, dname)], errs[("udeb_year_vjp", b, dname)] = check_udeb(
+                b, dtype, dname, 50)
+            errs[("lamcalc_jvp", b, dname)], errs[("lamcalc_vjp", b, dname)] = check_lamcalc(
+                b, dtype, dname, 64 if b >= 512 else 0)
+        limits = {k: um.max_kernel_layers(dtype, k) for k in ("udeb_year_jvp", "udeb_year_vjp")}
+        log(f"  layer limits in {dname} (the kernels' library): {limits}")
+        for n_layers in (*LAYER_CHECKS, limits["udeb_year_vjp"], limits["udeb_year_jvp"]):
+            check_udeb(512, dtype, dname, n_layers, vjp=n_layers <= limits["udeb_year_vjp"])
+        for n_layers in (3, 50):
+            check_udeb(RAGGED, dtype, dname, n_layers, per_member_profile=True)
+        for kernel, limit in limits.items():
+            st, *args = udeb_inputs(2, dtype, seed=1, n_layers=limit + 1)
+            try:
+                if kernel == "udeb_year_jvp":
+                    um.udeb_year_jvp(st, args, [None] * 4)
+                else:
+                    um.udeb_year_vjp(st, *args, None, None)
+            except ValueError as exc:
+                log(f"  {kernel} at n={limit + 1} in {dname} raises: {exc}")
+            else:
+                raise AssertionError(f"{kernel} took {limit + 1} layers in {dname}")
     return errs
 
 
@@ -2107,66 +2250,149 @@ def phase_timing(smi, runner, params, launches, n_steps, errs, div_instr):
 
     kernels = []
     for name, source, replaces, ms, call_ms, plain_ms, (other, divs), nbytes, dn in records:
-        div_total, div_pipe = div_instr[dn]
-        ops = other + divs * div_pipe
-        t_ops = ops / ISSUE_RATE[dn] * 1e3
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        bound_ms = max(t_ops, t_bytes)
-        bound_by = "operations" if t_ops >= t_bytes else "bytes"
-        earlier = max((other + divs) / PEAK_FLOPS[dn] * 1e3, t_bytes)
-        log(f"  {name}: {ms:.4f} ms/launch on the device ({call_ms:.4f} ms a call back to "
-            f"back, host launch included), plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms "
-            f"by {bound_by} ({other:.4e} add/mul-class operations + {divs:.4e} divisions x "
-            f"{div_pipe} FMA-pipe instructions, {nbytes:.4e} B; the kernel at "
-            f"{bound_ms / ms:.1%} of its bound; {earlier:.4f} ms by the earlier rule, every "
-            f"operation one at {PEAK_FLOPS[dn]:.3g}/s; "
-            f"{(other + divs * div_total) / ISSUE_RATE[dn] * 1e3:.4f} ms with every "
-            f"instruction of a division at the issue rate) at B={b} {dn} on {smi}")
+        bound_ms, bound_by = log_bound(name, b, dn, ms, call_ms, plain_ms, other, divs, nbytes,
+                                       div_instr, smi)
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches[name], "max_abs_err": errs[(name, N_MEMBERS, "float64")],
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": None,
         })
+    for record in derivative_timing(smi, div_instr):
+        record["max_abs_err"] = errs[(record["name"], N_MEMBERS, "float64")]
+        kernels.append(record)
     return kernels
 
 
-def plain_backward_ms(fn, inputs, smi, what, reps=2):
-    """One backward of a kernel's ``torch.autograd.Function`` (the plain
-    version recomputed under autograd and differentiated), timed alone:
+def log_bound(name, b, dn, ms, call_ms, plain_ms, other, divs, nbytes, div_instr, smi):
+    """The least time the card could take for a launch's work, logged beside
+    the kernel's: ``(bound ms, "operations" or "bytes")``."""
+    div_total, div_pipe = div_instr[dn]
+    ops = other + divs * div_pipe
+    t_ops = ops / ISSUE_RATE[dn] * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    bound_ms = max(t_ops, t_bytes)
+    bound_by = "operations" if t_ops >= t_bytes else "bytes"
+    earlier = max((other + divs) / PEAK_FLOPS[dn] * 1e3, t_bytes)
+    plain = "not timed" if plain_ms is None else f"{plain_ms:.3f} ms"
+    log(f"  {name}: {ms:.4f} ms/launch on the device ({call_ms:.4f} ms a call back to "
+        f"back, host launch included), plain {plain}, bound {bound_ms:.4g} ms "
+        f"by {bound_by} ({other:.4e} add/mul-class operations + {divs:.4e} divisions x "
+        f"{div_pipe} FMA-pipe instructions, {nbytes:.4e} B; the kernel at "
+        f"{bound_ms / ms:.1%} of its bound; {earlier:.4f} ms by the earlier rule, every "
+        f"operation one at {PEAK_FLOPS[dn]:.3g}/s; "
+        f"{(other + divs * div_total) / ISSUE_RATE[dn] * 1e3:.4f} ms with every "
+        f"instruction of a division at the issue rate) at B={b} {dn} on {smi}")
+    return bound_ms, bound_by
+
+
+def derivative_timing(smi, div_instr):
+    """The four derivative kernels a launch at the gradients' batches
+    (GRAD_BATCHES, float64, n = 50), each beside its bound; at B = 100,000
+    also beside its plain version (``plain_jvp`` of the plain forward, or
+    the adjoint's twin), for the ``kernels`` line."""
+    import functools
+
+    import torch
+
+    from rscm_tpu_torch.ops import lamcalc_kernel as lk
+    from rscm_tpu_torch.ops import udeb_month as um
+    from rscm_tpu_torch.ops.plain_grad import plain_jvp
+
+    dt, dn = torch.float64, "float64"
+    records = []
+    for b in GRAD_BATCHES:
+        reps = 20 if b < N_MEMBERS else 5
+        st, scal, ocean, init, vec = udeb_inputs(b, dt, seed=1)
+        primals = (scal, ocean, init, vec)
+        tangents = (seeded(scal.shape, dt, 1), seeded(ocean.shape, dt, 2), None,
+                    seeded(vec.shape, dt, 3))
+        g_ocean, g_vec = seeded(ocean.shape, dt, 4), seeded((8, b), dt, 5)
+        lst, packed = lamcalc_inputs(b, dt, seed=1, fallback_every=0)
+        tangent, g_out = seeded(packed.shape, dt, 6), seeded((3, b), dt, 7)
+        runs = {
+            "udeb_year_jvp": (
+                lambda: um.udeb_year_jvp(st, primals, tangents),
+                lambda: plain_jvp(functools.partial(um.udeb_year_plain, st), primals,
+                                  tangents),
+                lambda: um.udeb_year_jvp_work(st, *primals),
+                "rscm_tpu_torch/csrc/udeb_year.cu", "rscm_tpu/ops/udeb_month.py:542"),
+            "udeb_year_vjp": (
+                lambda: um.udeb_year_vjp(st, *primals, g_ocean, g_vec),
+                lambda: um.udeb_year_vjp_plain(st, *primals, g_ocean, g_vec),
+                lambda: um.udeb_year_vjp_work(st, *primals, g_ocean, g_vec),
+                "rscm_tpu_torch/csrc/udeb_year.cu", "rscm_tpu/ops/udeb_month.py:542"),
+            "lamcalc_jvp": (
+                lambda: lk.lamcalc_jvp(lst, packed, tangent),
+                lambda: plain_jvp(functools.partial(lk.lamcalc_plain, lst), (packed,),
+                                  (tangent,)),
+                lambda: lk.lamcalc_jvp_work(lst, packed),
+                "rscm_tpu_torch/csrc/lamcalc.cu", "rscm_tpu/ops/lamcalc_kernel.py:317"),
+            "lamcalc_vjp": (
+                lambda: lk.lamcalc_vjp(lst, packed, g_out),
+                lambda: lk.lamcalc_vjp_plain(lst, packed, g_out),
+                lambda: lk.lamcalc_vjp_work(lst, packed, g_out),
+                "rscm_tpu_torch/csrc/lamcalc.cu", "rscm_tpu/ops/lamcalc_kernel.py:317"),
+        }
+        for name, (kernel, plain, work, source, replaces) in runs.items():
+            ms = kernel_device_ms(kernel, f"{name}_kernel", reps)
+            call_ms = cuda_ms(kernel, reps)
+            # the plain versions are host-bound at every batch: timed once
+            plain_ms = cuda_ms(plain, 1) if b == N_MEMBERS else None
+            other, divs, nbytes = work()
+            bound_ms, bound_by = log_bound(name, b, dn, ms, call_ms, plain_ms, other, divs,
+                                           nbytes, div_instr, smi)
+            if b == N_MEMBERS:
+                records.append({
+                    "name": name, "route": "cuda", "source": source, "replaces": replaces,
+                    "launches": 0, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                    "bound_by": bound_by, "library_ms": None,
+                })
+    return records
+
+
+def backward_ms(grad, smi, what, reps=2):
+    """One call of ``grad`` (a kernel's derivative at B = 1), timed alone:
     ``(device ms, wall ms)`` a call, from torch.profiler (every device
     operation of the calls, over the calls) and from the host clock."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    xs = [x.detach().clone().requires_grad_(True) for x in inputs]
-    outs = fn(*xs)
-    outs = outs if isinstance(outs, tuple) else (outs,)
-    cot = [torch.ones_like(o) for o in outs]
-
-    def backward():
-        return torch.autograd.grad(outs, xs, cot, retain_graph=True)
-
-    backward()
+    grad()
     torch.cuda.synchronize()
     t = time.perf_counter()
     for _ in range(reps):
-        backward()
+        grad()
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t) / reps * 1e3
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
-            backward()
+            grad()
         torch.cuda.synchronize()
     device = sum(e.self_device_time_total for e in prof.key_averages()
                  if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3 / reps
-    log(f"  {what} backward: {device:.3f} ms of device time and {wall:.3f} ms of wall a call "
-        f"on {smi}")
+    if device == 0.0:
+        # the profiler can record none of a short call's launches (see
+        # kernel_device_ms): CUDA events around calls queued behind a spin
+        # kernel, so that the card runs them back to back
+        log(f"  {what}: the profiler recorded no device time; timed by CUDA events behind a "
+            f"spin kernel instead")
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(100_000_000)
+        start.record()
+        for _ in range(reps):
+            grad()
+        end.record()
+        torch.cuda.synchronize()
+        device = start.elapsed_time(end) / reps
+    log(f"  {what}: {device:.3f} ms of device time and {wall:.3f} ms of wall a call on {smi}")
     return device, wall
 
 
 def phase_calibrate(smi):
     """The MAGICC calibration at full width through the port's entry points."""
+    import functools
+
     import numpy as np
     import torch
     import torch.autograd.forward_ad as fwAD
@@ -2179,18 +2405,31 @@ def phase_calibrate(smi):
     from rscm_tpu_torch.magicc.calibration import MAGICC_PARAM_SPECS, magicc_calibration
     from rscm_tpu_torch.magicc.coupled import build_magicc_model
     from rscm_tpu_torch.ops import build
-    from rscm_tpu_torch.ops.lamcalc_kernel import LamcalcFunction, lamcalc
-    from rscm_tpu_torch.ops.udeb_month import UdebYearFunction, udeb_year
+    from rscm_tpu_torch.ops import lamcalc_kernel as lk
+    from rscm_tpu_torch.ops import udeb_month as um
+    from rscm_tpu_torch.ops.plain_grad import plain_jvp
+
+    counters = {"udeb_year": um.udeb_year, "lamcalc": lk.lamcalc,
+                "udeb_year_jvp": um.udeb_year_jvp, "lamcalc_jvp": lk.lamcalc_jvp,
+                "udeb_year_vjp": um.udeb_year_vjp, "lamcalc_vjp": lk.lamcalc_vjp}
 
     def reset():
-        udeb_year.launches = 0
-        lamcalc.launches = 0
+        for fn in counters.values():
+            fn.launches = 0
+        plain_jvp.calls = 0
 
-    def expect(what, n):
-        got = {"udeb_year": udeb_year.launches, "lamcalc": lamcalc.launches}
-        log(f"  {what}: launches {got}")
-        if got != {"udeb_year": n, "lamcalc": n}:
-            raise AssertionError(f"{what}: launches {got}, expected {n} each")
+    def expect(what, n, jvp=0, vjp=0):
+        """Each forward kernel launched n times, each tangent kernel jvp
+        times, each adjoint vjp times, and no derivative of a plain version
+        taken on the card."""
+        got = {name: fn.launches for name, fn in counters.items()}
+        want = {"udeb_year": n, "lamcalc": n, "udeb_year_jvp": jvp, "lamcalc_jvp": jvp,
+                "udeb_year_vjp": vjp, "lamcalc_vjp": vjp}
+        log(f"  {what}: launches {got}, plain_jvp calls {plain_jvp.calls}")
+        if got != want or plain_jvp.calls != 0:
+            raise AssertionError(f"{what}: launches {got} and {plain_jvp.calls} plain_jvp "
+                                 f"calls, expected {want} and none")
+        return got
 
     def synced():
         torch.cuda.synchronize()
@@ -2266,7 +2505,8 @@ def phase_calibrate(smi):
         (cut_grad,) = torch.autograd.grad(value.sum(), x)
         t_bwd = synced() - t - t_fwd
     peak = torch.cuda.max_memory_allocated()
-    expect(f"gradient at the truth, {cut_steps + 1} years (forward launches)", cut_steps)
+    grad_launches = expect(f"gradient at the truth, {cut_steps + 1} years, reverse mode",
+                           cut_steps, vjp=cut_steps)
     grad = cut_grad[0]
     log(f"  gradient at the truth, reverse mode, {cut_steps + 1} years: forward with the tape "
         f"{t_fwd:.3f} s, backward {t_bwd:.3f} s, peak device memory {peak / 2**30:.3f} GiB on "
@@ -2286,7 +2526,7 @@ def phase_calibrate(smi):
     with torch.no_grad(), fwAD.dual_level():
         jvp = fwAD.unpack_dual(cut_obj(fwAD.make_dual(cut_theta, v[None]))).tangent[0]
     t_jvp = synced() - t
-    expect("forward-mode run at the cut", cut_steps)
+    jvp_launches = expect("forward-mode run at the cut", cut_steps, jvp=cut_steps)
     gv = (cut_grad[0] * v).sum()
     scale = float(cut_grad.abs().max())
     log(f"  forward mode along a seeded direction, {cut_steps + 1} years: jvp {float(jvp):.10e}, "
@@ -2319,17 +2559,42 @@ def phase_calibrate(smi):
         raise AssertionError(f"gradient disagrees with central differences ({fd_err:.3e})")
     del fine, fine_obj
 
-    # each kernel's backward, alone, at the gradient's batch of one walker
+    # each kernel's reverse-mode derivative alone at the gradient's batch of one
+    # walker: the adjoint kernel (the Function's backward), and the plain
+    # version recomputed and differentiated under autograd, the derivative
+    # the card ran before the adjoint kernels (kept for one comparison)
     st, *udeb_args = udeb_inputs(1, torch.float64, seed=5)
-    udeb_bwd = plain_backward_ms(lambda *a: UdebYearFunction.apply(st, *a), udeb_args, smi,
-                                 "udeb_year (B=1, n=50)")
     lst, packed = lamcalc_inputs(1, torch.float64, seed=5, fallback_every=0)
-    lam_bwd = plain_backward_ms(lambda p: LamcalcFunction.apply(lst, p), [packed], smi,
-                                "lamcalc (B=1)")
-    log(f"  the kernels' backwards in one gradient: {cut_steps} x ({udeb_bwd[1]:.3f} + "
-        f"{lam_bwd[1]:.3f}) ms = {cut_steps * (udeb_bwd[1] + lam_bwd[1]) / 1e3:.3f} s of wall, "
-        f"{cut_steps * udeb_bwd[1] / 1e3 / t_bwd:.1%} of the backward's {t_bwd:.3f} s in "
-        f"udeb_year's (device time {cut_steps * udeb_bwd[0] / 1e3:.3f} s)")
+    timed = {}
+    for name, fn, args in (("udeb_year", functools.partial(um.UdebYearFunction.apply, st),
+                            udeb_args),
+                           ("lamcalc", functools.partial(lk.LamcalcFunction.apply, lst),
+                            [packed]),
+                           ("udeb_year_plain", functools.partial(um.udeb_year_plain, st),
+                            udeb_args),
+                           ("lamcalc_plain", functools.partial(lk.lamcalc_plain, lst),
+                            [packed])):
+        xs = [x.detach().clone().requires_grad_(True) for x in args]
+        if name.endswith("_plain"):
+            def grad(fn=fn, xs=xs):
+                outs = fn(*xs)
+                outs = outs if isinstance(outs, tuple) else (outs,)
+                return torch.autograd.grad(outs, xs, [torch.ones_like(o) for o in outs])
+            what = f"{name[:-6]}'s plain version recomputed and differentiated (B=1)"
+        else:
+            outs = fn(*xs)
+            outs = outs if isinstance(outs, tuple) else (outs,)
+
+            def grad(outs=outs, xs=xs):
+                return torch.autograd.grad(outs, xs, [torch.ones_like(o) for o in outs],
+                                           retain_graph=True)
+            what = f"{name}'s backward through its adjoint kernel (B=1)"
+        timed[name] = backward_ms(grad, smi, what)
+    log(f"  the kernels' reverse-mode derivatives in one gradient: {cut_steps} x "
+        f"({timed['udeb_year'][1]:.3f} + {timed['lamcalc'][1]:.3f}) ms = "
+        f"{cut_steps * (timed['udeb_year'][1] + timed['lamcalc'][1]) / 1e3:.3f} s of wall, "
+        f"against {cut_steps * (timed['udeb_year_plain'][1] + timed['lamcalc_plain'][1]) / 1e3:.3f}"
+        f" s through the plain versions; the backward took {t_bwd:.3f} s")
 
     # 3. Adam from the prior midpoint (reverse-mode gradients), at the cut
     # (bfloat16 flux history)
@@ -2343,16 +2608,35 @@ def phase_calibrate(smi):
     fit = est.optimize(AdamOptimizer(learning_rate=0.03, n_steps=n_adam, fwd_threshold=0),
                        x0=mid)
     wall = synced() - t
-    expect(f"Adam, {n_adam} step(s)", cut_steps * (n_adam + 1) + cut_steps)
+    expect(f"Adam, {n_adam} step(s), reverse mode", cut_steps * (n_adam + 1) + cut_steps,
+           vjp=cut_steps * n_adam)
     best = np.asarray(fit.best_params)
     with torch.no_grad():
         end = float(cut_obj(cut.runner.as_theta(best[None]))[0])
-    log(f"  Adam, {n_adam} step(s) from the prior midpoint, {cut_steps + 1} years: objective "
-        f"{start:.6e} -> {end:.6e}, "
+    log(f"  Adam, {n_adam} step(s) from the prior midpoint, {cut_steps + 1} years, reverse "
+        f"mode: objective {start:.6e} -> {end:.6e}, "
         f"{wall:.3f} s ({wall / n_adam:.3f} s a step with the final objective and the "
         f"host evaluation) on {smi}")
     if not end <= start or not np.all((lower < best) & (best < upper)):
         raise AssertionError(f"Adam rose ({start} -> {end}) or left the support: {best}")
+    # the users' default: forward mode up to 32 parameters (eight directions
+    # as eight members of one run)
+    reset()
+    t = synced()
+    fit_fwd = est.optimize(AdamOptimizer(learning_rate=0.03, n_steps=n_adam), x0=mid)
+    wall_fwd = synced() - t
+    expect(f"Adam, {n_adam} step(s), forward mode", cut_steps * (n_adam + 1) + cut_steps,
+           jvp=cut_steps * n_adam)
+    best_fwd = np.asarray(fit_fwd.best_params)
+    with torch.no_grad():
+        end_fwd = float(cut_obj(cut.runner.as_theta(best_fwd[None]))[0])
+    log(f"  Adam, {n_adam} step(s), forward mode (fwd_threshold=32, the default): objective "
+        f"{start:.6e} -> {end_fwd:.6e}, {wall_fwd:.3f} s ({wall_fwd / n_adam:.3f} s a step with "
+        f"the final objective and the host evaluation); its iterate against reverse mode's: "
+        f"max |diff| {float(np.abs(best_fwd - best).max()):.3e} on {smi}")
+    if not end_fwd <= start or not np.all((lower < best_fwd) & (best_fwd < upper)):
+        raise AssertionError(f"Adam (forward mode) rose ({start} -> {end_fwd}) or left the "
+                             f"support: {best_fwd}")
 
     # 4. the device ensemble sampler, both moves, with a checkpoint round trip
     n_it = CALIB["ensemble_iterations"]
@@ -2390,41 +2674,52 @@ def phase_calibrate(smi):
     nuts_years = np.arange(1850.0, CALIB["nuts_last_year"] + 1.0)
     nuts_cut = magicc_calibration(years=nuts_years)
     nuts_steps = len(nuts_years) - 1
-    nuts = NUTSSampler(nuts_cut.params, nuts_cut.runner, nuts_cut.likelihood, nuts_cut.target,
-                       max_tree_depth=CALIB["nuts_depth"], grad_mode="rev")
     c = CALIB["nuts_chains"]
-    reset()
-    t = synced()
     # chains start around the truth, as the JAX package's NUTS test of the
     # MAGICC graph starts them (from prior draws the first trajectories of a
     # posterior this peaked diverge at once)
     init = nuts_cut.theta_true * (
         1.0 + 0.01 * np.random.default_rng(6).uniform(-1.0, 1.0, (c, d)))
-    chain = nuts.run(n_iterations=1, n_chains=c, warmup=1, seed=5, init_positions=init,
-                     step_size=CALIB["nuts_step_size"])
-    wall = synced() - t
-    diag = nuts.last_diagnostics
-    expect("NUTS", nuts_steps * diag["n_gradient_evals"])
-    samples = chain.flat_samples()
-    log(f"  NUTS, {c} chains, depth {CALIB['nuts_depth']}, 1 warmup + 1 transition, "
-        f"{nuts_steps + 1} years: wall {wall:.3f} s, {diag['n_gradient_evals']} batched "
-        f"value-and-gradient evaluations ({wall / diag['n_gradient_evals']:.3f} s each, "
-        f"{wall / (diag['n_gradient_evals'] * c) * 1e3:.1f} ms a chain), {diag['n_model_evals']} "
-        f"chain leapfrog steps in growing trees, {diag['n_divergences']} divergences, step "
-        f"sizes median {float(np.median(diag['step_sizes'])):.4f} on {smi}")
-    if samples.shape != (c, d) or not np.all(np.isfinite(samples)):
-        raise AssertionError(f"NUTS samples: shape {samples.shape}, or non-finite")
-    if not 0 < diag["n_model_evals"] <= c * diag["n_leapfrog_steps"]:
-        raise AssertionError(f"NUTS counted {diag['n_model_evals']} model evaluations in "
-                             f"{diag['n_leapfrog_steps']} leapfrog steps of {c} chains")
+    for mode in ("rev", "auto"):  # "auto": forward mode up to 32 parameters, the default
+        nuts = NUTSSampler(nuts_cut.params, nuts_cut.runner, nuts_cut.likelihood,
+                           nuts_cut.target, max_tree_depth=CALIB["nuts_depth"], grad_mode=mode)
+        reset()
+        t = synced()
+        chain = nuts.run(n_iterations=1, n_chains=c, warmup=1, seed=5, init_positions=init,
+                         step_size=CALIB["nuts_step_size"])
+        wall = synced() - t
+        diag = nuts.last_diagnostics
+        evals = nuts_steps * diag["n_gradient_evals"]
+        expect(f"NUTS, grad_mode={mode!r}", evals, jvp=0 if mode == "rev" else evals,
+               vjp=evals if mode == "rev" else 0)
+        samples = chain.flat_samples()
+        log(f"  NUTS, grad_mode={mode!r}, {c} chains, depth {CALIB['nuts_depth']}, 1 warmup + 1 "
+            f"transition, {nuts_steps + 1} years: wall {wall:.3f} s, "
+            f"{diag['n_gradient_evals']} batched value-and-gradient evaluations "
+            f"({wall / diag['n_gradient_evals']:.3f} s each, "
+            f"{wall / (diag['n_gradient_evals'] * c) * 1e3:.1f} ms a chain), "
+            f"{diag['n_model_evals']} chain leapfrog steps in growing trees, "
+            f"{diag['n_divergences']} divergences, step sizes median "
+            f"{float(np.median(diag['step_sizes'])):.4f} on {smi}")
+        if samples.shape != (c, d) or not np.all(np.isfinite(samples)):
+            raise AssertionError(f"NUTS samples: shape {samples.shape}, or non-finite")
+        if not 0 < diag["n_model_evals"] <= c * diag["n_leapfrog_steps"]:
+            raise AssertionError(f"NUTS counted {diag['n_model_evals']} model evaluations in "
+                                 f"{diag['n_leapfrog_steps']} leapfrog steps of {c} chains")
     return {
-        "udeb_year": {"launches_per_gradient": cut_steps, "backward_ms": udeb_bwd[0]},
-        "lamcalc": {"launches_per_gradient": cut_steps, "backward_ms": lam_bwd[0]},
+        "udeb_year": {"launches_per_gradient": cut_steps,
+                      "plain_derivative_ms": timed["udeb_year_plain"][0]},
+        "lamcalc": {"launches_per_gradient": cut_steps,
+                    "plain_derivative_ms": timed["lamcalc_plain"][0]},
+        "udeb_year_jvp": {"launches": jvp_launches["udeb_year_jvp"]},
+        "lamcalc_jvp": {"launches": jvp_launches["lamcalc_jvp"]},
+        "udeb_year_vjp": {"launches": grad_launches["udeb_year_vjp"]},
+        "lamcalc_vjp": {"launches": grad_launches["lamcalc_vjp"]},
     }
 
 
-PHASES = ("main", "second", "magicc", "flagship", "scenarios", "fullmagicc", "host", "mesh",
-          "calibrate")
+PHASES = ("kernels", "main", "second", "magicc", "flagship", "scenarios", "fullmagicc", "host",
+          "mesh", "calibrate")
 
 
 def main(selected):
@@ -2437,9 +2732,10 @@ def main(selected):
         smi = phase_device()
     with Phase("build"):
         div_instr = phase_build(smi)
-    if "main" in run:
+    if "main" in run or "kernels" in run:
         with Phase("kernels"):
             errs = phase_kernels()
+    if "main" in run:
         with Phase("main"):
             runner, params, launches, n_steps = phase_main()
     if "second" in run:

@@ -1,6 +1,7 @@
 """
 The LAMCALC feedback iteration per member: a CUDA kernel and its plain
-PyTorch version.
+PyTorch version, and the iteration's tangent and adjoint kernels with
+theirs (:func:`lamcalc_jvp`, :func:`lamcalc_vjp`).
 
 Replaces the Pallas kernel ``rscm_tpu/ops/lamcalc_kernel.py::
 lamcalc_scalars`` (``pallas_call`` at ``lamcalc_kernel.py:252``, body
@@ -31,6 +32,13 @@ its slowest member.
 the JAX package's fixed-count ``_ref_jnp``.  PyTorch's CUDA division by a host scalar
 multiplies by its reciprocal; the kernel takes those reciprocals, taken in
 the working dtype, as arguments.
+
+**The derivatives** (:class:`LamcalcFunction`): on CUDA tensors the tangent
+kernel (the iteration on dual numbers) and the adjoint kernel (a replay
+that keeps each iterate, then the active iterations reversed), in the same
+source; their plain versions are ``plain_jvp`` of :func:`lamcalc_plain`
+and the explicit twin :func:`lamcalc_vjp_plain`.  Both differentiate the
+iteration as the JAX package's fixed-count loop unrolls it.
 """
 
 from __future__ import annotations
@@ -42,7 +50,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from .plain_grad import plain_jvp, plain_vjp
+from .plain_grad import plain_jvp
 from .work import count_arithmetic, note_launch
 
 __all__ = [
@@ -53,6 +61,11 @@ __all__ = [
     "LamStatic",
     "SCALAR_ROWS",
     "lamcalc_work",
+    "lamcalc_jvp",
+    "lamcalc_jvp_work",
+    "lamcalc_vjp",
+    "lamcalc_vjp_plain",
+    "lamcalc_vjp_work",
 ]
 
 #: packed per-member scalar input rows, in order
@@ -96,47 +109,55 @@ def lam_static(params, fallback) -> LamStatic:
 # ---------------------------------------------------------------------------
 
 
-def lamcalc_plain_with_iterations(st: LamStatic, packed):
-    """:func:`lamcalc_plain` plus, per member, the number of iterations the
-    early-exit kernel runs (39 for a member that never converges)."""
-    ecs, q, k_lo, k_ns, rlo, alpha = packed.unbind(0)
+def _temps(st: LamStatic, q, k_lo, k_ns, alpha, lam_o, lam_l):
+    """The four box temperatures ``t = q M^-1 v`` by the cofactor inverse of
+    the coupling matrix ``M``, and ``(y = M^-1 v, cofactors, 1 / det M)``
+    for the adjoint."""
     fgno, fgnl, fgso, fgsl = st.fg
     q0, q1, q2, q3 = st.qfrac
     v = (fgno * q0, fgnl * q1, fgso * q2, fgsl * q3)
+    # coupling-matrix entries; structural zeros stay host floats
+    a_diag = k_lo * alpha + k_ns
+    m = [
+        [fgno * lam_o + a_diag, -k_lo, -k_ns, 0.0],
+        [-k_lo * alpha, fgnl * lam_l + k_lo, 0.0, 0.0],
+        [-k_ns, 0.0, fgso * lam_o + a_diag, -k_lo],
+        [0.0, 0.0, -k_lo * alpha, fgsl * lam_l + k_lo],
+    ]
+
+    def det3(rows, cols):
+        (r0, r1, r2), (c0, c1, c2) = rows, cols
+        return (
+            m[r0][c0] * (m[r1][c1] * m[r2][c2] - m[r1][c2] * m[r2][c1])
+            - m[r0][c1] * (m[r1][c0] * m[r2][c2] - m[r1][c2] * m[r2][c0])
+            + m[r0][c2] * (m[r1][c0] * m[r2][c1] - m[r1][c1] * m[r2][c0])
+        )
+
+    others = [tuple(k for k in range(4) if k != i) for i in range(4)]
+
+    def cofactor(i, j):
+        d = det3(others[i], others[j])
+        return d if (i + j) % 2 == 0 else -d
+
+    cof = [[cofactor(i, j) for j in range(4)] for i in range(4)]
+    det = sum(m[0][j] * cof[0][j] for j in range(4))
+    inv_det = 1.0 / det
+    y = [sum((cof[j][i] * inv_det) * v[j] for j in range(4)) for i in range(4)]
+    return [q * y[i] for i in range(4)], y, cof, inv_det
+
+
+def lamcalc_plain_with_iterations(st: LamStatic, packed, tape=None):
+    """:func:`lamcalc_plain` plus, per member, the number of iterations the
+    early-exit kernel runs (39 for a member that never converges).  A
+    ``tape`` list receives each iteration's values for the adjoint twin
+    (:func:`lamcalc_vjp_plain`)."""
+    ecs, q, k_lo, k_ns, rlo, alpha = packed.unbind(0)
+    fgno, fgnl, fgso, fgsl = st.fg
     fgosum = fgno + fgso
     fglsum = fgnl + fgsl
     fratio = fgosum / fglsum
 
     lam = q / ecs
-
-    def temps_from(lam_o, lam_l):
-        # coupling-matrix entries; structural zeros stay host floats
-        a_diag = k_lo * alpha + k_ns
-        m = [
-            [fgno * lam_o + a_diag, -k_lo, -k_ns, 0.0],
-            [-k_lo * alpha, fgnl * lam_l + k_lo, 0.0, 0.0],
-            [-k_ns, 0.0, fgso * lam_o + a_diag, -k_lo],
-            [0.0, 0.0, -k_lo * alpha, fgsl * lam_l + k_lo],
-        ]
-
-        def det3(rows, cols):
-            (r0, r1, r2), (c0, c1, c2) = rows, cols
-            return (
-                m[r0][c0] * (m[r1][c1] * m[r2][c2] - m[r1][c2] * m[r2][c1])
-                - m[r0][c1] * (m[r1][c0] * m[r2][c2] - m[r1][c2] * m[r2][c0])
-                + m[r0][c2] * (m[r1][c0] * m[r2][c1] - m[r1][c1] * m[r2][c0])
-            )
-
-        others = [tuple(k for k in range(4) if k != i) for i in range(4)]
-
-        def cofactor(i, j):
-            d = det3(others[i], others[j])
-            return d if (i + j) % 2 == 0 else -d
-
-        cof = [[cofactor(i, j) for j in range(4)] for i in range(4)]
-        det = sum(m[0][j] * cof[0][j] for j in range(4))
-        inv_det = 1.0 / det
-        return [q * sum((cof[j][i] * inv_det) * v[j] for j in range(4)) for i in range(4)]
 
     zeros = lam * 0.0
     lamo_im2, lamo_im1, lamo_i = lam + 0.0, lam + 0.0, lam + 0.7
@@ -155,7 +176,7 @@ def lamcalc_plain_with_iterations(st: LamStatic, packed):
             break
         iterations = iterations + (~found).to(torch.int32)
         lam_l = lam + fratio * (lam - lamo_i) / rlo
-        t = temps_from(lamo_i, lam_l)
+        t = _temps(st, q, k_lo, k_ns, alpha, lamo_i, lam_l)[0]
         ocean_mean = (fgno * t[0] + fgso * t[2]) / fgosum
         land_mean = (fgnl * t[1] + fgsl * t[3]) / fglsum
         diff_i = rlo - land_mean / ocean_mean
@@ -189,6 +210,12 @@ def lamcalc_plain_with_iterations(st: LamStatic, packed):
         secant2 = secant(lamo_im2, diff_im2)
 
         lamo_next = torch.where(iflag == 0, next_step, torch.where(sign_change, secant1, secant2))
+        if tape is not None:
+            tape.append({
+                "lamo": lamo_i, "lamo_im1": lamo_im1, "lamo_im2": lamo_im2, "diff": diff_i,
+                "diff_im1": diff_im1, "diff_im2": diff_im2, "lam_l": lam_l, "step": iflag == 0,
+                "sign_change": sign_change,
+            })
         dlamo = torch.where(iflag == 0, dlamo_step, dlamo)
         lamo_next = torch.where(found, lamo_i, lamo_next)
         lamo_im2, lamo_im1, lamo_i = lamo_im1, lamo_i, lamo_next
@@ -207,6 +234,141 @@ def lamcalc_plain(st: LamStatic, packed):
     (twin of the JAX package's ``_ref_jnp``, whose fixed-count loop it
     leaves once every member has converged)."""
     return lamcalc_plain_with_iterations(st, packed)[0]
+
+
+def lamcalc_vjp_plain(st: LamStatic, packed, g_out):
+    """Plain PyTorch version of the adjoint kernel (``lamcalc_vjp_kernel``,
+    its operations in its order): the cotangent ``(6, B)`` of the input
+    from that of the output ``(3, B)``.
+
+    It replays the iteration (:func:`lamcalc_plain_with_iterations` with a
+    tape), then reverses each member's active iterations, from the one it
+    converged at down to the first, through the secant or step update and
+    the temperatures' cofactor inverse (``t = q M^-1 v``: ``M``'s
+    cotangent is ``-(M^-T y_bar) y^T``).  A member that takes the fallback
+    gets zero, as the JAX package's rule gives.  Each member's iterations
+    run in the same order as the kernel's; a member past its convergence
+    adds zeros.
+    """
+    ecs, q, k_lo, k_ns, rlo, alpha = packed.unbind(0)
+    fgno, fgnl, fgso, fgsl = st.fg
+    fg = st.fg
+    fgosum, fglsum = fgno + fgso, fgnl + fgsl
+    fratio = fgosum / fglsum
+    tape = []
+    with torch.no_grad():
+        _, iterations = lamcalc_plain_with_iterations(st, packed, tape=tape)
+        found = iterations < MAX_ITERATIONS - 1
+        kstar = iterations - 1
+        zero = torch.zeros_like(ecs)
+        g_lo, g_ll, g_eff = g_out.unbind(0)
+        bars = dict.fromkeys(SCALAR_ROWS, zero)
+        lam = q / ecs
+        lam_bar = zero
+        lamo_bar = [zero] * (len(tape) + 1)
+        diff_bar = [zero] * (len(tape) + 1)
+
+        def add(name, v):
+            bars[name] = bars[name] + v
+
+        for j in range(len(tape) - 1, -1, -1):
+            rec = tape[j]
+            lamo_i, diff_i = rec["lamo"], rec["diff"]
+            act = found & (j <= kstar)
+            # the update that made lamo_{j+1}: each branch adds lamo_i once
+            upd = found & (j < kstar)
+            big_l = torch.where(upd, lamo_bar[j + 1], zero)
+            lamo_bar[j] = lamo_bar[j] + big_l
+            sign_change = rec["sign_change"]
+            lamo_back = torch.where(sign_change, rec["lamo_im1"], rec["lamo_im2"])
+            diff_back = torch.where(sign_change, rec["diff_im1"], rec["diff_im2"])
+            den = diff_i - diff_back
+            secant = upd & ~rec["step"] & ~(den.abs() < 1e-30)
+            den = torch.where(secant, den, torch.ones_like(den))
+            r = lamo_i - lamo_back
+            qv = diff_i * r / den
+            p_bar = torch.where(secant, -big_l, zero) / den
+            den_bar = -(p_bar * qv)
+            diff_bar[j] = diff_bar[j] + p_bar * r
+            r_bar = p_bar * diff_i
+            lamo_bar[j] = lamo_bar[j] + r_bar
+            for k, on in ((j - 1, sign_change), (j - 2, ~sign_change)):
+                if k >= 0:
+                    lamo_bar[k] = lamo_bar[k] - torch.where(on, r_bar, zero)
+            diff_bar[j] = diff_bar[j] + den_bar
+            for k, on in ((j - 1, sign_change), (j - 2, ~sign_change)):
+                if k >= 0:
+                    diff_bar[k] = diff_bar[k] - torch.where(on, den_bar, zero)
+
+            # the iteration's ratio, efficacy and land feedback
+            seed = act & (j == kstar)
+            lamo_bar[j] = lamo_bar[j] + torch.where(seed, g_lo, zero)
+            ll_bar = torch.where(seed, g_ll, zero)
+            eff_bar = zero if st.rf_sum_zero else torch.where(seed, g_eff, zero)
+            lam_l = rec["lam_l"]
+            t, y, cof, inv_det = _temps(st, q, k_lo, k_ns, alpha, lamo_i, lam_l)
+            om = (fgno * t[0] + fgso * t[2]) / fgosum
+            lm = (fgnl * t[1] + fgsl * t[3]) / fglsum
+            db = torch.where(act, diff_bar[j], zero)
+            add("rlo", db)
+            lm_bar = -db / om
+            om_bar = -(lm_bar * (lm / om))
+            tg = fgno * t[0] + fgnl * t[1] + fgso * t[2] + fgsl * t[3]
+            tg_bar = eff_bar / ecs
+            add("ecs", -(tg_bar * (tg / ecs)))
+            t_bar = [tg_bar * fg[k] for k in range(4)]
+            s_l = lm_bar / fglsum
+            t_bar[1] = t_bar[1] + s_l * fgnl
+            t_bar[3] = t_bar[3] + s_l * fgsl
+            s_o = om_bar / fgosum
+            t_bar[0] = t_bar[0] + s_o * fgno
+            t_bar[2] = t_bar[2] + s_o * fgso
+            add("q", ((t_bar[0] * y[0] + t_bar[1] * y[1]) + t_bar[2] * y[2]) + t_bar[3] * y[3])
+            yb = [t_bar[k] * q for k in range(4)]
+            u = []
+            for a in range(4):
+                acc = zero
+                for c in range(4):
+                    acc = acc + (cof[a][c] * inv_det) * yb[c]
+                u.append(acc)
+
+            def m_bar(a, b):
+                return -(u[a] * y[b])
+
+            lamo_bar[j] = lamo_bar[j] + m_bar(0, 0) * fgno
+            ad_bar = m_bar(0, 0)
+            add("k_lo", -m_bar(0, 1))
+            add("k_ns", -m_bar(0, 2))
+            add("k_lo", -(m_bar(1, 0) * alpha))
+            add("alpha", -(m_bar(1, 0) * k_lo))
+            ll_bar = ll_bar + m_bar(1, 1) * fgnl
+            add("k_lo", m_bar(1, 1))
+            add("k_ns", -m_bar(2, 0))
+            lamo_bar[j] = lamo_bar[j] + m_bar(2, 2) * fgso
+            ad_bar = ad_bar + m_bar(2, 2)
+            add("k_lo", -m_bar(2, 3))
+            add("k_lo", -(m_bar(3, 2) * alpha))
+            add("alpha", -(m_bar(3, 2) * k_lo))
+            ll_bar = ll_bar + m_bar(3, 3) * fgsl
+            add("k_lo", m_bar(3, 3))
+            add("k_lo", ad_bar * alpha)
+            add("alpha", ad_bar * k_lo)
+            add("k_ns", ad_bar)
+            # lam_l = lam + fratio * (lam - lamo_i) / rlo
+            lam_bar = lam_bar + ll_bar
+            w = fratio * (lam - lamo_i)
+            w_bar = ll_bar / rlo
+            add("rlo", -(w_bar * (w / rlo)))
+            dl_bar = w_bar * fratio
+            lam_bar = lam_bar + dl_bar
+            lamo_bar[j] = lamo_bar[j] - dl_bar
+
+        lam_bar = lam_bar + lamo_bar[0]
+        lam_q = lam_bar / ecs
+        add("q", lam_q)
+        add("ecs", -(lam_q * lam))
+        out = torch.stack([bars[name] for name in SCALAR_ROWS])
+    return torch.where(found, out, torch.zeros_like(out))
 
 
 # ---------------------------------------------------------------------------
@@ -239,7 +401,9 @@ def lamcalc(st: LamStatic, packed):
     """LAMCALC for every member: ``(6, B)`` in, ``(3, B)`` out.
 
     CPU tensors take :func:`lamcalc_plain`.  CUDA tensors launch the kernel
-    (built on first use); anything the kernel cannot take raises.
+    (built on first use) through :class:`LamcalcFunction`, whose
+    derivatives in both modes are kernels too; anything a kernel cannot
+    take raises.
     """
     if packed.dim() != 2 or packed.shape[0] != S_IN:
         raise ValueError(f"lamcalc: input must be ({S_IN}, B), got {tuple(packed.shape)}")
@@ -251,15 +415,18 @@ def lamcalc(st: LamStatic, packed):
 
 
 class LamcalcFunction(torch.autograd.Function):
-    """The kernel's forward with the plain version's derivatives.
+    """The kernel and its derivative kernels.
 
-    The twin of the JAX package's ``custom_jvp`` around the Pallas kernel
-    (``_jvp`` differentiates ``_ref_jnp``, ``lamcalc_kernel.py:317-325``):
-    there is no backward kernel.  ``forward`` launches the CUDA kernel (the
-    plain version without a tape on CPU tensors, as the tests call it);
-    ``backward`` and ``jvp`` differentiate :func:`lamcalc_plain` at the
-    saved input.  Gradients flow through the iterate the plain version
-    selects; a member that takes the fallback constants gets zero.
+    The JAX package wraps its Pallas kernel in a ``custom_jvp`` whose rule
+    differentiates the kernel's ``jnp`` reference (``_jvp`` differentiates
+    ``_ref_jnp``, ``rscm_tpu/ops/lamcalc_kernel.py:317-322``).  Here
+    ``forward`` launches the CUDA kernel, ``jvp`` the tangent kernel
+    (:func:`lamcalc_jvp`) and ``backward`` the adjoint kernel
+    (:func:`lamcalc_vjp`), at the saved input; on CPU tensors, as the tests
+    call it, the plain versions (``plain_jvp`` of :func:`lamcalc_plain`, the
+    explicit adjoint :func:`lamcalc_vjp_plain`).  Gradients flow through
+    the iterate each member converged at; a member that takes the fallback
+    constants gets zero.
     """
 
     @staticmethod
@@ -274,13 +441,13 @@ class LamcalcFunction(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g_out):
-        (grad,) = plain_vjp(functools.partial(lamcalc_plain, ctx.st), ctx.saved_tensors,
-                             ctx.needs_input_grad[1:], (g_out,))
-        return None, grad
+        if not ctx.needs_input_grad[1]:
+            return None, None
+        return None, lamcalc_vjp(ctx.st, ctx.saved_tensors[0], g_out)
 
     @staticmethod
     def jvp(ctx, _st_t, packed_t):
-        return plain_jvp(functools.partial(lamcalc_plain, ctx.st), ctx.saved_tensors, (packed_t,))
+        return lamcalc_jvp(ctx.st, ctx.saved_tensors[0], packed_t)
 
 
 def _lamcalc_forward(st: LamStatic, packed):
@@ -288,34 +455,107 @@ def _lamcalc_forward(st: LamStatic, packed):
     if packed.device.type == "cpu":
         with torch.no_grad():
             return lamcalc_plain(st, packed)
-    if packed.dtype not in _SUFFIX:
-        raise TypeError(f"lamcalc: the kernel takes float32 or float64, not {packed.dtype}")
-    if not packed.is_contiguous():
-        raise ValueError("lamcalc: input must be contiguous")
-
-    from . import build
-
-    b = packed.shape[1]
-    suffix = _SUFFIX[packed.dtype]
-    fn = getattr(build.load("lamcalc"), f"lamcalc_{suffix}")
-    p = ctypes.c_void_p
-    fn.argtypes = [p, ctypes.c_int, ctypes.c_int, p, p, ctypes.c_longlong, p]
-    fn.restype = ctypes.c_int
-    consts = _consts(st, np.dtype(np.float32 if suffix == "f32" else np.float64))
-    out = torch.empty((S_OUT, b), dtype=packed.dtype, device=packed.device)
-    with torch.cuda.device(packed.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(consts.ctypes.data, consts.size, int(st.rf_sum_zero),
-                 packed.data_ptr(), out.data_ptr(), b, stream)
-    if err != 0:
-        raise RuntimeError(f"lamcalc: kernel launch failed with CUDA error {err}")
+    out = torch.empty((S_OUT, packed.shape[1]), dtype=packed.dtype, device=packed.device)
+    _launch("lamcalc", st, packed, out, packed)
     lamcalc.launches += 1
     note_launch("lamcalc", lamcalc_work, st, packed)
     return out
 
 
+def lamcalc_jvp(st: LamStatic, packed, packed_t):
+    """The output's tangent ``(3, B)`` along ``packed_t`` (``None`` is
+    zero) at ``packed``.
+
+    CPU tensors take ``plain_jvp`` of :func:`lamcalc_plain`.  CUDA tensors
+    launch the tangent kernel (``lamcalc_jvp_kernel``, ``csrc/lamcalc.cu``),
+    which replaces the JAX package's rule ``_jvp``
+    (``rscm_tpu/ops/lamcalc_kernel.py:317-322``, not a ``pallas_call``):
+    the iteration on dual numbers, one thread a member, convergence and the
+    freeze decided on the values, the iteration differentiated as the
+    fixed-count loop unrolls it (not at the converged point).  *Bound:*
+    operations at a large batch (~3x the forward's); at a gradient's batch
+    one member's serial iterations.  *Design:* the forward's own iteration
+    code, so the values are the forward's bit for bit; a member stops once
+    it has converged; a fallback member's tangent is zero.
+    """
+    if packed.device.type == "cpu":
+        return plain_jvp(functools.partial(lamcalc_plain, st), (packed,), (packed_t,))
+    t = torch.zeros_like(packed) if packed_t is None else packed_t.contiguous()
+    out = torch.empty((S_OUT, packed.shape[1]), dtype=packed.dtype, device=packed.device)
+    _launch("lamcalc_jvp", st, packed, out, packed, t)
+    lamcalc_jvp.launches += 1
+    note_launch("lamcalc_jvp", lamcalc_jvp_work, st, packed)
+    return out
+
+
+def lamcalc_vjp(st: LamStatic, packed, g_out):
+    """The input's cotangent ``(6, B)`` from the output's, ``g_out``
+    ``(3, B)``, at ``packed``.
+
+    CPU tensors take :func:`lamcalc_vjp_plain`.  CUDA tensors launch the
+    adjoint kernel (``lamcalc_vjp_kernel``, ``csrc/lamcalc.cu``), which
+    replaces the JAX package's rule ``_jvp`` transposed by JAX
+    (``rscm_tpu/ops/lamcalc_kernel.py:317-322``, not a ``pallas_call``).
+    *Bound:* operations at a large batch (the forward's iterations twice
+    and their adjoints); at a gradient's batch one member's serial
+    iterations.  *Design:* one thread a member replays its iterations with
+    the forward's code, keeping each iterate, its ratio and its update's
+    branch in local memory (at most 39), then reverses them from the one
+    it converged at; the cofactor inverse is reversed as ``-(M^-T y_bar)
+    y^T`` from the replayed cofactors.  A fallback member gets zero.
+    """
+    if packed.device.type == "cpu":
+        return lamcalc_vjp_plain(st, packed, g_out)
+    out = torch.empty_like(packed)
+    _launch("lamcalc_vjp", st, packed, out, packed, g_out.contiguous())
+    lamcalc_vjp.launches += 1
+    note_launch("lamcalc_vjp", lamcalc_vjp_work, st, packed, g_out)
+    return out
+
+
+def _launch(kernel: str, st: LamStatic, packed, out, *inputs):
+    """Launch ``<kernel>_<dtype>`` of ``csrc/lamcalc.cu`` on ``inputs``
+    (``(rows, B)`` CUDA tensors like ``packed``) into ``out``."""
+    from . import build
+
+    if packed.dtype not in _SUFFIX:
+        raise TypeError(f"{kernel}: the kernel takes float32 or float64, not {packed.dtype}")
+    for x in inputs:
+        if (x.device != packed.device or x.dtype != packed.dtype or not x.is_contiguous()
+                or x.shape[1:] != packed.shape[1:]):
+            raise ValueError(f"{kernel}: inputs must be contiguous {packed.dtype} (rows, "
+                             f"{packed.shape[1]}) on {packed.device}, got {tuple(x.shape)}")
+    suffix = _SUFFIX[packed.dtype]
+    fn = getattr(build.load("lamcalc"), f"{kernel}_{suffix}")
+    p = ctypes.c_void_p
+    fn.argtypes = [p, ctypes.c_int, ctypes.c_int, *([p] * len(inputs)), p, ctypes.c_longlong, p]
+    fn.restype = ctypes.c_int
+    consts = _consts(st, np.dtype(np.float32 if suffix == "f32" else np.float64))
+    with torch.cuda.device(packed.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(consts.ctypes.data, consts.size, int(st.rf_sum_zero),
+                 *(x.data_ptr() for x in inputs), out.data_ptr(), packed.shape[1], stream)
+    if err != 0:
+        raise RuntimeError(f"{kernel}: kernel launch failed with CUDA error {err}")
+
+
 #: members of a launch whose plain version is counted for its work
 _WORK_SAMPLE = 256
+
+
+def _scaled_work(st: LamStatic, packed, fn, *args):
+    """``(other, divisions)`` of ``fn(st, sample, *args' samples)`` on the
+    first members, over the iterations the slowest of them runs, times the
+    iterations each member of the batch needs (each kernel stops a member
+    when it converges)."""
+    b = packed.shape[1]
+    k = min(b, _WORK_SAMPLE)
+    sample = packed[:, :k]
+    steps = int(lamcalc_plain_with_iterations(st, sample)[1].max())
+    other, divisions = count_arithmetic(fn, st, sample, *(a[:, :k] for a in args))
+    iterations = float(lamcalc_plain_with_iterations(st, packed)[1].double().sum())
+    scale = iterations / (k * steps)
+    return other * scale, divisions * scale
 
 
 def lamcalc_work(st: LamStatic, packed):
@@ -325,18 +565,38 @@ def lamcalc_work(st: LamStatic, packed):
     iterations the slowest of them runs) times the iterations each member
     of the batch needs (the kernel stops each member when it converges);
     the bytes of the input read once and the output written once."""
-    b = packed.shape[1]
-    sample = packed[:, : min(b, _WORK_SAMPLE)]
-    steps = int(lamcalc_plain_with_iterations(st, sample)[1].max())
-    other, divisions = count_arithmetic(lamcalc_plain, st, sample)
-    iterations = float(lamcalc_plain_with_iterations(st, packed)[1].double().sum())
-    scale = iterations / (sample.shape[1] * steps)
-    nbytes = packed.element_size() * (packed.numel() + S_OUT * b)
-    return other * scale, divisions * scale, nbytes
+    nbytes = packed.element_size() * (packed.numel() + S_OUT * packed.shape[1])
+    return (*_scaled_work(st, packed, lamcalc_plain), nbytes)
 
 
-#: kernel launches since the count was last set to 0
+def _jvp_of_plain(st, packed):
+    """The tangent of :func:`lamcalc_plain` along the input itself (what
+    the tangent kernel computes, for its work)."""
+    return plain_jvp(functools.partial(lamcalc_plain, st), (packed,), (packed,))
+
+
+def lamcalc_jvp_work(st: LamStatic, packed):
+    """``(operations, divisions, bytes)`` of one tangent launch: the
+    arithmetic of ``plain_jvp`` of the plain version, scaled as
+    :func:`lamcalc_work` scales it; the input and its tangent read once,
+    the output's tangent written once."""
+    nbytes = packed.element_size() * (2 * packed.numel() + S_OUT * packed.shape[1])
+    return (*_scaled_work(st, packed, _jvp_of_plain), nbytes)
+
+
+def lamcalc_vjp_work(st: LamStatic, packed, g_out):
+    """``(operations, divisions, bytes)`` of one adjoint launch: the
+    arithmetic of :func:`lamcalc_vjp_plain`, scaled as
+    :func:`lamcalc_work` scales it; the input and the output's cotangent
+    read once, the input's cotangent written once."""
+    nbytes = packed.element_size() * (2 * packed.numel() + S_OUT * packed.shape[1])
+    return (*_scaled_work(st, packed, lamcalc_vjp_plain, g_out), nbytes)
+
+
+#: kernel launches since each count was last set to 0
 lamcalc.launches = 0
+lamcalc_jvp.launches = 0
+lamcalc_vjp.launches = 0
 
 
 def lamcalc_scalars(params, ecs, fallback, engine: str = "cuda"):

@@ -1,6 +1,7 @@
 """
 One year of ClimateUDEB monthly sub-steps per member: a CUDA kernel and its
-plain PyTorch version.
+plain PyTorch version, and the year's tangent and adjoint kernels with
+theirs (:func:`udeb_year_jvp`, :func:`udeb_year_vjp`).
 
 Replaces the Pallas kernel ``rscm_tpu/ops/udeb_month.py::udeb_year_update``
 (``pallas_call`` at ``udeb_month.py:400``, body ``_month_body`` at
@@ -53,6 +54,15 @@ Thomas sweep runs layer by layer; each element still sees exactly the
 operations the kernel performs.  PyTorch's CUDA division of a tensor by a
 host scalar multiplies by the scalar's reciprocal, so the kernel does the
 same with reciprocals precomputed in the working dtype (:func:`_geom`).
+
+**The derivatives** (:class:`UdebYearFunction`): on CUDA tensors the
+tangent kernel (forward mode, the month on dual numbers) and the adjoint
+kernel (reverse mode: a checkpointed replay of the year, then each month's
+adjoint from the twelfth to the first), in the same source; their plain
+versions are ``plain_jvp`` of :func:`udeb_year_plain` and the explicit
+twin :func:`udeb_year_vjp_plain`, which performs the adjoint kernel's
+operations in its order.  Each wrapper's docstring states what bounds its
+kernel and what the design does about it.
 """
 
 from __future__ import annotations
@@ -66,7 +76,7 @@ import numpy as np
 import torch
 
 from ..utils.linear_algebra import thomas_solve_assoc
-from .plain_grad import plain_jvp, plain_vjp
+from .plain_grad import plain_jvp
 from .work import count_arithmetic, note_launch
 
 __all__ = [
@@ -79,6 +89,11 @@ __all__ = [
     "max_kernel_layers",
     "kernel_config",
     "udeb_year_work",
+    "udeb_year_jvp",
+    "udeb_year_jvp_work",
+    "udeb_year_vjp",
+    "udeb_year_vjp_plain",
+    "udeb_year_vjp_work",
 ]
 
 #: packed per-member scalar rows, in order
@@ -89,15 +104,6 @@ SCALAR_ROWS = (
     "c_ground", "erf_start", "erf_end", "t_polar",
 )
 S = len(SCALAR_ROWS)
-
-@functools.lru_cache(maxsize=None)
-def max_kernel_layers(dtype) -> int:
-    """The most layers the CUDA kernel takes in ``dtype``, as the kernel's
-    library states it (``csrc/udeb_year.cu``, ``max_layers``): a block of one
-    warp must fit the shared memory a block may use.  Builds the kernel on
-    first use."""
-    return int(_lib_fn(f"udeb_year_max_layers_{_SUFFIX[dtype]}", [])())
-
 
 @dataclass(frozen=True)
 class UdebStatic:
@@ -165,10 +171,12 @@ def static_from_component(comp, dt_year: float) -> UdebStatic:
 
 
 def _month_plain(st: UdebStatic, scal, ocean, land, ground, hemi, upwell,
-                 alpha_eff, init_prof, frac, tridiag="sequential"):
+                 alpha_eff, init_prof, frac, tridiag="sequential", tape=None):
     """One monthly sub-step on ``(2, n, B)`` / ``(2, B)`` tensors
     (transcription of ``_month_body``); ``tridiag="assoc"`` solves the
-    column by associative scans instead of the Thomas sweep."""
+    column by associative scans instead of the Thomas sweep.  A ``tape``
+    dict receives the intermediates the adjoint twin reads
+    (:func:`_month_vjp_plain`)."""
     n = st.n
     dz, dz_mix = st.dz, st.dz_mix
     dz1 = dz / 2.0
@@ -208,10 +216,8 @@ def _month_plain(st: UdebStatic, scal, ocean, land, ground, hemi, upwell,
     ocean0 = ocean[:, 0]
     dkdt_term = sc["kappa_dkdt"] * (ocean0 - ocean[:, n - 1])
     one_minus_rel = per_layer([1.0 - r for r in st.relative_depth])
-    kappa = torch.maximum(
-        (one_minus_rel * dkdt_term[:, None] + sc["kappa"]) * st.diffusivity_scale,
-        sc["kappa_min"],
-    )  # (2, n-1, B)
+    kappa_pre = (one_minus_rel * dkdt_term[:, None] + sc["kappa"]) * st.diffusivity_scale
+    kappa = torch.maximum(kappa_pre, sc["kappa_min"])  # (2, n-1, B)
 
     denominator = f_o_c * (sc["k_lo"] + f_l_c * sc["lam_l"])
     term_feedback = alpha_eff / c_mix * (
@@ -286,6 +292,9 @@ def _month_plain(st: UdebStatic, scal, ocean, land, ground, hemi, upwell,
         for i in range(n - 2, -1, -1):
             x[i] = d_prime[i] - c_prime[i] * x[i + 1]
         solution = torch.stack(x, dim=1)
+        if tape is not None:
+            tape.update(ground=ground, kappa_pre=kappa_pre, a=a_rows, b=b_rows, cp=c_prime,
+                        dp=d_prime, x=x)
     ocean = torch.minimum(solution, sc["max_temp"])
 
     # -- land / exchange / upwelling ----------------------------------------
@@ -322,6 +331,9 @@ def _month_plain(st: UdebStatic, scal, ocean, land, ground, hemi, upwell,
     w_min = sc["w_initial"] * (1.0 - sc["w_var_frac"])
     ratios = torch.minimum(global_temp / w_thresh, torch.ones_like(w_thresh))
     upwell = torch.maximum(sc["w_initial"] * (1.0 - sc["w_var_frac"] * ratios), w_min)
+    if tape is not None:
+        tape.update(erf=erf, t_star=t_star, delta_max=delta_max, nonzero=nonzero,
+                    t_air=torch.stack([t_air_nho, t_air_sho]), global_temp=global_temp)
     return ocean, land, ground, hemi, upwell
 
 
@@ -343,6 +355,400 @@ def udeb_year_plain(st: UdebStatic, scal, ocean, init_prof, vec, tridiag="sequen
             tridiag,
         )
     return ocean.reshape(2 * n, b), torch.cat([land, ground, hemi, upwell])
+
+
+# ---------------------------------------------------------------------------
+# the adjoint's plain version
+# ---------------------------------------------------------------------------
+
+
+def _max_bar(a, b, g):
+    """Cotangents of ``torch.maximum(a, b)`` from ``g``: a tie sends half to
+    each operand, as PyTorch's and JAX's rules do."""
+    half = g * 0.5
+    zero = torch.zeros_like(g)
+    return (torch.where(a == b, half, torch.where(a > b, g, zero)),
+            torch.where(a == b, half, torch.where(a > b, zero, g)))
+
+
+def _min_bar(a, b, g):
+    """Cotangents of ``torch.minimum(a, b)`` from ``g`` (ties halved)."""
+    half = g * 0.5
+    zero = torch.zeros_like(g)
+    return (torch.where(a == b, half, torch.where(a < b, g, zero)),
+            torch.where(a == b, half, torch.where(a < b, zero, g)))
+
+
+def _month_vjp_plain(st: UdebStatic, scal, state, alpha_eff, init_prof, frac, bars, acc):
+    """The adjoint of one month (the kernel's ``month_vjp``, same operations
+    in the same order) on ``(2, B)`` tensors, one row a hemisphere as one
+    thread a hemisphere in the kernel: ``state`` is the month's starting
+    ``(ocean (2, n, B), land, ground, hemi, upwell)``, ``bars`` the
+    cotangents of its outputs ``(ocean rows [n x (2, B)], land, ground,
+    hemi, upwell)``.  Returns the cotangents of its starting state;
+    ``acc`` accumulates those of the constants: ``scal`` ``(S + 1, 2, B)``
+    (the row ``S`` is each hemisphere's own upwelling threshold),
+    ``alpha_eff``, ``prof`` (``[n x (2, B)]``) and ``delta_max`` (the SST->
+    air map's constant, differentiated once a year)."""
+    n = st.n
+    dt = st.dt_sub
+    fgno, fgnl, fgso, fgsl = st.fg
+    f_l0, f_l1 = st.f_l
+    like = dict(dtype=state[0].dtype, device=state[0].device)
+
+    def per_hemi(a, b):
+        return torch.tensor([a, b], **like).view(2, 1)
+
+    f_l = per_hemi(f_l0, f_l1)
+    f_o = per_hemi(0.5 - f_l0, 0.5 - f_l1)
+    safe_fl = per_hemi(f_l0 if f_l0 >= 1e-15 else 1.0, f_l1 if f_l1 >= 1e-15 else 1.0)
+    fl_ok = f_l >= 1e-15
+    cmfo = st.c_mix * f_o
+    q_ocean = per_hemi(st.qfrac[0], st.qfrac[2])
+    q_land = per_hemi(st.qfrac[1], st.qfrac[3])
+    fg_land = per_hemi(fgnl, fgsl)
+    fg_own_o, fg_other_o = per_hemi(fgno, fgso), per_hemi(fgso, fgno)
+    fg_own_l, fg_other_l = fg_land, per_hemi(fgsl, fgnl)
+    exchange = per_hemi(float(fgno > 1e-15), float(fgso > 1e-15)) > 0.5
+    # 1 / fg in the working dtype, as PyTorch's CUDA division by a host
+    # scalar (and the kernel's constants) take it
+    inv_fg_o = torch.where(exchange, 1.0 / per_hemi(fgno if fgno > 1e-15 else 1.0,
+                                                    fgso if fgso > 1e-15 else 1.0), 0.0)
+    at, ab, ad = st.af_top, st.af_bot, st.af_diff
+    omr = [1.0 - r for r in st.relative_depth]
+    I = {name: i for i, name in enumerate(SCALAR_ROWS)}
+    sc = {name: scal[i] for i, name in enumerate(SCALAR_ROWS)}
+    sb = acc["scal"]
+    pb = acc["prof"]
+
+    def add(name, v):
+        sb[I[name]] = sb[I[name]] + v
+
+    ocean, land, ground, hemi, upw = state
+    col_bar, land_bar, ground_bar, hemi_bar, upw_bar = bars
+    tp = {}
+    _month_plain(st, scal, ocean, land, ground, hemi, upw, alpha_eff, init_prof, frac, tape=tp)
+    prof = [init_prof[:, i] for i in range(n)]
+    cp, dp, x = tp["cp"], tp["dp"], tp["x"]
+    mt = sc["max_temp"]
+    w = upw
+    t_polar = sc["t_polar"]
+    ocean0, ocean_last = ocean[:, 0], ocean[:, n - 1]
+
+    # -- land / exchange / upwelling ----------------------------------------
+    w_initial, w_var = sc["w_initial"], sc["w_var_frac"]
+    w_thresh = scal[S : S + 2]
+    gt = tp["global_temp"]
+    r0 = gt / w_thresh
+    ratio = torch.minimum(r0, torch.ones_like(w_thresh))
+    b2 = 1.0 - w_var * ratio
+    w_min = w_initial * (1.0 - w_var)
+    g_a, g_b = _max_bar(w_initial * b2, w_min, upw_bar)
+    add("w_initial", g_a * b2)
+    b2_bar = g_a * w_initial
+    add("w_var_frac", -(b2_bar * ratio))
+    ratio_bar = -(b2_bar * w_var)
+    add("w_initial", g_b * (1.0 - w_var))
+    add("w_var_frac", -(g_b * w_initial))
+    r0_bar, _ = _min_bar(r0, torch.ones_like(r0), ratio_bar)
+    gt_bar = r0_bar / w_thresh
+    sb[S] = sb[S] - gt_bar * r0
+    t_air = tp["t_air"]
+    t_other = t_air.flip(0)
+    t_own_bar = gt_bar * fg_own_o
+    t_other_bar = gt_bar * fg_other_o
+    land_own_bar = gt_bar * fg_own_l
+    land_other_bar = gt_bar * fg_other_l
+    zero = torch.zeros_like(hemi_bar)
+    dif = t_other - t_air
+    e = sc["k_ns"] * inv_fg_o
+    add("k_ns", torch.where(exchange, (hemi_bar * dif) * inv_fg_o, zero))
+    dif_bar = torch.where(exchange, hemi_bar * e, zero)
+    t_other_bar = t_other_bar + dif_bar
+    t_own_bar = t_own_bar - dif_bar
+    hemi_in_bar = torch.where(exchange, zero, hemi_bar)
+
+    land_bar = (land_bar + land_own_bar) + land_other_bar.flip(0)
+    erf = tp["erf"]
+    ka = sc["k_lo"] * sc["amplify"]
+    num = (erf * q_land) * fg_land + ka * t_air
+    den = sc["lam_l"] * fg_land + sc["k_lo"]
+    land_pre = num / den
+    g_l, g_mt = _min_bar(land_pre, mt, land_bar)
+    add("max_temp", g_mt)
+    num_bar = g_l / den
+    den_bar = -(num_bar * land_pre)
+    add("lam_l", den_bar * fg_land)
+    add("k_lo", den_bar)
+    erf_bar = (num_bar * fg_land) * q_land
+    ka_bar = num_bar * t_air
+    add("k_lo", ka_bar * sc["amplify"])
+    add("amplify", ka_bar * sc["k_lo"])
+    t_own_bar = t_own_bar + num_bar * ka
+    t_bar = t_own_bar + t_other_bar.flip(0)
+
+    # SST -> air: the branch the forward took
+    alpha, gamma = sc["adj_alpha"], sc["adj_gamma"]
+    nonzero = tp["nonzero"]
+    sst = torch.minimum(x[0], mt)
+    lower = sst < tp["t_star"]
+    linear = ~nonzero | lower  # alpha * sst appears
+    add("adj_alpha", torch.where(linear, t_bar * sst, zero))
+    gs = gamma * sst
+    gs_bar = t_bar * sst
+    add("adj_gamma", torch.where(nonzero & lower, gs_bar * sst, zero))
+    sst_bar = torch.where(
+        nonzero, torch.where(lower, (t_bar * alpha + t_bar * gs) + gs_bar * gamma, t_bar),
+        t_bar * alpha)
+    acc["delta_max"] = acc["delta_max"] + torch.where(nonzero & ~lower, t_bar, zero)
+
+    # -- the clamp and back substitution -------------------------------------
+    xb = [None] * n
+    for i in range(n):
+        g = col_bar[i] + sst_bar if i == 0 else col_bar[i]
+        g_x, g_mt = _min_bar(x[i], mt, g)
+        add("max_temp", g_mt)
+        xb[i] = g_x if i == 0 else g_x - xb[i - 1] * cp[i - 1]
+
+    # -- the forward sweep and the assembly, last row first ------------------
+    col_in = [None] * n
+    tul = w / st.dz * dt
+    delta_w = w - w_initial
+    k_dw = st.dt_sub / st.dz * delta_w
+    dkdt_bar = zero
+    tul_bar = zero
+    pto_bar = zero
+    k_dw_bar = zero
+    k_dw_tp_bar = zero
+
+    def kappa_bar_add(i, kb):
+        nonlocal dkdt_bar
+        g_k, g_min = _max_bar(tp["kappa_pre"][:, i], sc["kappa_min"], kb)
+        add("kappa_min", g_min)
+        kp_bar = g_k * st.diffusivity_scale
+        add("kappa", kp_bar)
+        dkdt_bar = dkdt_bar + kp_bar * omr[i]
+
+    i = n - 1
+    a_l, b_l = tp["a"][i], tp["b"][i]
+    den = b_l - a_l * cp[i - 1]
+    num_bar = xb[i] / den
+    den_bar = -(num_bar * x[i])
+    d_bar = num_bar
+    a_bar = -(num_bar * dp[i - 1])
+    pend_dp = -(num_bar * a_l)
+    b_bar = den_bar
+    a_bar = a_bar - den_bar * cp[i - 1]
+    pend_cp = -(den_bar * a_l)
+    col_in[i] = d_bar
+    pto_bar = pto_bar + d_bar * at[i]
+    kq_bar = d_bar * at[i]
+    k_dw_bar = k_dw_bar + kq_bar * (t_polar - prof[i])
+    pq_bar = kq_bar * k_dw
+    add("t_polar", pq_bar)
+    pb[i] = pb[i] - pq_bar
+    s_bar = b_bar * at[i]
+    tdl_bar = s_bar - a_bar * at[i]
+    tul_bar = tul_bar + s_bar
+    kappa_carry = (tdl_bar * dt) / (st.dz * st.dz)
+    for i in range(n - 2, 0, -1):
+        a_i, b_i = tp["a"][i], tp["b"][i]
+        den = b_i - a_i * cp[i - 1]
+        dp_bar = xb[i] + pend_dp
+        cp_bar = pend_cp - xb[i] * x[i + 1]
+        num_bar = dp_bar / den
+        den_bar = -(num_bar * dp[i])
+        d_bar = num_bar
+        a_bar = -(num_bar * dp[i - 1])
+        pend_dp = -(num_bar * a_i)
+        c_bar = cp_bar / den
+        den_bar = den_bar - c_bar * cp[i]
+        b_bar = den_bar
+        a_bar = a_bar - den_bar * cp[i - 1]
+        pend_cp = -(den_bar * a_i)
+        col_in[i] = d_bar
+        pto_bar = pto_bar + d_bar * ad[i]
+        dif = prof[i + 1] * ab[i] - prof[i] * at[i]
+        k_dw_bar = k_dw_bar + d_bar * dif
+        dif_bar = d_bar * k_dw
+        pb[i + 1] = pb[i + 1] + dif_bar * ab[i]
+        pb[i] = pb[i] - dif_bar * at[i]
+        k_dw_tp_bar = k_dw_tp_bar + d_bar * ad[i]
+        s_bar = -(c_bar * ab[i])
+        tdd_bar = s_bar + b_bar * ab[i]
+        tul_bar = tul_bar + s_bar
+        tul_bar = tul_bar + b_bar * at[i]
+        tdu_bar = b_bar * at[i] - a_bar * at[i]
+        kappa_bar_add(i, kappa_carry + (tdd_bar * dt) / (st.dz * st.dz))
+        kappa_carry = (tdu_bar * dt) * st.inv_dz_dzup[i - 1]
+
+    # row 0
+    b0 = tp["b"][0]
+    dp_bar = xb[0] + pend_dp
+    cp_bar = pend_cp - xb[0] * x[1]
+    d0_bar = dp_bar / b0
+    b0_bar = -(d0_bar * dp[0])
+    c0_bar = cp_bar / b0
+    b0_bar = b0_bar - c0_bar * cp[0]
+    col_in[0] = d0_bar
+    kb_bar = d0_bar * ab[0]
+    pp = prof[1] - t_polar
+    ka0 = st.dt_sub / st.dz_mix * delta_w
+    ka0_bar = kb_bar * pp
+    pp_bar = kb_bar * ka0
+    pb[1] = pb[1] + pp_bar
+    add("t_polar", -pp_bar)
+    delta_w_bar = ka0_bar * (st.dt_sub / st.dz_mix)
+    land_in_bar = zero
+    ground1_bar = ground_bar
+    if st.land_heat_enabled:
+        lg2 = land - tp["ground"]
+        ga_bar = ((-d0_bar * at[0]) * dt) / cmfo
+        add("k_lg", ga_bar * lg2)
+        lg2_bar = ga_bar * sc["k_lg"]
+        land_in_bar = lg2_bar
+        ground1_bar = ground1_bar - lg2_bar
+    denom_fb = f_o * (sc["k_lo"] + f_l * sc["lam_l"])
+    p6 = sc["k_lo"] * f_l / denom_fb
+    forcing_amp = 1.0 + p6
+    fa = erf * q_ocean
+    fc_bar = ((d0_bar * at[0]) * dt) / st.c_mix
+    hemi_in_bar = hemi_in_bar + fc_bar
+    fa_bar = fc_bar * forcing_amp
+    famp_bar = fc_bar * fa
+    erf_bar = erf_bar + fa_bar * q_ocean
+    s_bar = -(c0_bar * ab[0])
+    td0_bar = s_bar
+    tu0_bar = s_bar
+    tf_bar = (b0_bar * at[0]) * dt
+    td0_bar = td0_bar + b0_bar * ab[0]
+    tup_bar = b0_bar * ab[0]
+    tu0 = w / st.dz_mix * dt
+    tu0_bar = tu0_bar + tup_bar * sc["pi_ratio"]
+    add("pi_ratio", tup_bar * tu0)
+    kappa_bar_add(0, kappa_carry + (td0_bar * dt) / (st.dz_mix * (st.dz / 2.0)))
+    w_bar = (tu0_bar * dt) / st.dz_mix
+
+    # the row constants
+    k_dw_bar = k_dw_bar + k_dw_tp_bar * t_polar
+    add("t_polar", k_dw_tp_bar * k_dw)
+    delta_w_bar = delta_w_bar + k_dw_bar * (st.dt_sub / st.dz)
+    pt = sc["pi_ratio"] * tul
+    pt_bar = pto_bar * ocean0
+    col_in[0] = col_in[0] + pto_bar * pt
+    add("pi_ratio", pt_bar * tul)
+    tul_bar = tul_bar + pt_bar * sc["pi_ratio"]
+    w_bar = w_bar + delta_w_bar
+    add("w_initial", -delta_w_bar)
+    w_bar = w_bar + (tul_bar * dt) / st.dz
+    p5_bar = famp_bar / denom_fb
+    dfb_bar = -(p5_bar * p6)
+    add("k_lo", p5_bar * f_l)
+    p1 = sc["lam_l"] * sc["k_lo"]
+    p2 = p1 * sc["amplify"]
+    p4 = p2 * f_l / denom_fb
+    ae = alpha_eff / st.c_mix
+    ae_bar = tf_bar * (sc["lam_o"] + p4)
+    acc["alpha_eff"] = acc["alpha_eff"] + ae_bar / st.c_mix
+    s2_bar = tf_bar * ae
+    add("lam_o", s2_bar)
+    p3_bar = s2_bar / denom_fb
+    dfb_bar = dfb_bar - p3_bar * p4
+    p2_bar = p3_bar * f_l
+    p1_bar = p2_bar * sc["amplify"]
+    add("amplify", p2_bar * p1)
+    add("lam_l", p1_bar * sc["k_lo"])
+    add("k_lo", p1_bar * sc["lam_l"])
+    s1_bar = dfb_bar * f_o
+    add("k_lo", s1_bar)
+    add("lam_l", s1_bar * f_l)
+    dd = ocean0 - ocean_last
+    add("kappa_dkdt", dkdt_bar * dd)
+    dd_bar = dkdt_bar * sc["kappa_dkdt"]
+    col_in[0] = col_in[0] + dd_bar
+    col_in[n - 1] = col_in[n - 1] - dd_bar
+
+    # -- ground-heat damping, and the month's forcing ------------------------
+    ground_in_bar = ground1_bar
+    if st.land_heat_enabled:
+        lmg = land - ground
+        flux = sc["k_lg"] * lmg
+        den_g = safe_fl * sc["c_ground"]
+        u_g = flux / den_g
+        flux_bar = torch.where(fl_ok, ground1_bar * dt, zero) / den_g
+        add("c_ground", -(flux_bar * u_g) * safe_fl)
+        add("k_lg", flux_bar * lmg)
+        lmg_bar = flux_bar * sc["k_lg"]
+        land_in_bar = land_in_bar + lmg_bar
+        ground_in_bar = ground_in_bar - lmg_bar
+    add("erf_start", erf_bar)
+    fr_bar = erf_bar * frac
+    add("erf_end", fr_bar)
+    add("erf_start", -fr_bar)
+    return col_in, land_in_bar, ground_in_bar, hemi_in_bar, w_bar
+
+
+def udeb_year_vjp_plain(st: UdebStatic, scal, ocean, init_prof, vec, g_ocean, g_vec):
+    """Plain PyTorch version of the adjoint kernel (``udeb_year_vjp_kernel``,
+    its operations in its order): the cotangents ``(scal (S + 2, B), ocean
+    (2 n, B), init_prof (2 n, B) dense, vec (10, B))`` of one year's inputs
+    from those of its outputs, ``g_ocean`` ``(2 n, B)`` and ``g_vec``
+    ``(8, B)`` (``None`` reads as zero).
+
+    It replays the year with the plain forward (:func:`_month_plain`),
+    keeping each month's starting state, then takes the months' adjoints
+    from the twelfth to the first (:func:`_month_vjp_plain`): the transposed
+    Thomas solve, the assembly and the coupling step, every ``where``
+    sending its cotangent to the branch the forward took and every
+    ``minimum`` / ``maximum`` half of it to each operand at a tie.
+    """
+    n, b = st.n, ocean.shape[-1]
+    like = dict(dtype=ocean.dtype, device=ocean.device)
+    init_prof = init_prof.reshape(2, n, -1).expand(2, n, b)
+    vec_pairs = [vec[k : k + 2] for k in range(0, 10, 2)]
+    alpha_eff = vec_pairs[4]
+    with torch.no_grad():
+        state = (ocean.reshape(2, n, b), *vec_pairs[:4])
+        states = []
+        for m in range(1, st.steps + 1):
+            states.append(state)
+            state = _month_plain(st, scal, *state[:5], alpha_eff, init_prof, m / st.steps)
+        g_ocean = torch.zeros((2 * n, b), **like) if g_ocean is None else g_ocean
+        g_vec = torch.zeros((8, b), **like) if g_vec is None else g_vec
+        zero = torch.zeros((2, b), **like)
+        bars = (list(g_ocean.reshape(2, n, b).unbind(1)),
+                *(g_vec[k : k + 2] for k in range(0, 8, 2)))
+        acc = {"scal": [zero] * (S + 1), "prof": [zero] * n, "alpha_eff": zero,
+               "delta_max": zero}
+        for m in range(st.steps, 0, -1):
+            bars = _month_vjp_plain(st, scal, states[m - 1], alpha_eff, init_prof,
+                                    m / st.steps, bars, acc)
+
+        # the SST->air map's constants, once a year
+        sb = acc["scal"]
+        ia, ig = SCALAR_ROWS.index("adj_alpha"), SCALAR_ROWS.index("adj_gamma")
+        alpha, gamma = scal[ia], scal[ig]
+        nonzero = gamma.abs() > 1e-15
+        gamma_safe = torch.where(nonzero, gamma, torch.ones_like(gamma))
+        t_star = -(alpha - 1.0) / (2.0 * gamma_safe)
+        dm_bar = acc["delta_max"]
+        sb[ia] = sb[ia] + dm_bar * t_star
+        ts_bar = dm_bar * alpha
+        gts_bar = dm_bar * t_star
+        ts_bar = ts_bar + dm_bar * (gamma * t_star)
+        sb[ig] = sb[ig] + gts_bar * t_star
+        ts_bar = ts_bar + gts_bar * gamma
+        ts_bar = ts_bar - dm_bar
+        nm_bar = ts_bar / (2.0 * gamma_safe)
+        sb[ia] = sb[ia] - nm_bar
+        sb[ig] = sb[ig] + torch.where(nonzero, -(nm_bar * t_star) * 2.0, zero)
+
+        g_scal = torch.cat([torch.stack([v[0] + v[1] for v in sb[:S]]), sb[S]])
+        col_in, *vec_bars = bars
+        g_ocean_in = torch.stack(col_in, dim=1).reshape(2 * n, b)
+        g_init = torch.stack(acc["prof"], dim=1).reshape(2 * n, b)
+        g_vec_in = torch.cat([*vec_bars, acc["alpha_eff"]])
+    return g_scal, g_ocean_in, g_init, g_vec_in
 
 
 # ---------------------------------------------------------------------------
@@ -435,6 +841,10 @@ def _kernel_geom(st: UdebStatic, dtype, device):
 
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
+#: the kernels of ``csrc/udeb_year.cu``: name -> the ``kind`` its launch
+#: configuration is queried by (``udeb_year_config_*``)
+_KINDS = {"udeb_year": 0, "udeb_year_jvp": 1, "udeb_year_vjp": 2}
+
 
 def _check(st: UdebStatic, scal, ocean, init_prof, vec):
     n = st.n
@@ -451,14 +861,24 @@ def _check(st: UdebStatic, scal, ocean, init_prof, vec):
             raise ValueError(f"udeb_year: {name} must have {rows} rows, got {x.shape[0]}")
 
 
-def _check_layers(n: int, dtype):
-    limit = max_kernel_layers(dtype)
+def _check_layers(n: int, dtype, kernel: str = "udeb_year"):
+    limit = max_kernel_layers(dtype, kernel)
     if n > limit:
         raise ValueError(
-            f"udeb_year: the CUDA kernel takes at most {limit} layers in {dtype}, not {n}: "
+            f"{kernel}: the CUDA kernel takes at most {limit} layers in {dtype}, not {n}: "
             f"a block of one warp keeps {n} layers per thread in shared memory, more than "
             f"a block may use"
         )
+
+
+def _check_kernel_inputs(kernel: str, st: UdebStatic, dtype, **tensors):
+    """What every kernel of the file needs of CUDA tensors; raises on the rest."""
+    if dtype not in _SUFFIX:
+        raise TypeError(f"{kernel}: the kernel takes float32 or float64, not {dtype}")
+    _check_layers(st.n, dtype, kernel)
+    for name, x in tensors.items():
+        if not x.is_contiguous():
+            raise ValueError(f"{kernel}: {name} must be contiguous")
 
 
 def _lib_fn(name: str, argtypes):
@@ -470,20 +890,41 @@ def _lib_fn(name: str, argtypes):
     return fn
 
 
-def kernel_config(n: int, dtype, device=None) -> dict:
-    """The CUDA kernel's launch configuration at ``n`` layers on the current
-    (or given) card: threads per block, resident blocks per SM (from
+def _launch(kernel: str, suffix: str, argtypes, device, *args):
+    """Launch ``<kernel>_<suffix>`` on ``device``'s current stream (the
+    stream handle goes last); raises with the CUDA error it returns."""
+    fn = _lib_fn(f"{kernel}_{suffix}", [*argtypes, ctypes.c_void_p])
+    with torch.cuda.device(device):
+        err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{kernel}: kernel launch failed with CUDA error {err}")
+
+
+@functools.lru_cache(maxsize=None)
+def max_kernel_layers(dtype, kernel: str = "udeb_year") -> int:
+    """The most layers ``kernel`` (``udeb_year``, ``udeb_year_jvp`` or
+    ``udeb_year_vjp``) takes in ``dtype``, as the kernel's library states it
+    (``csrc/udeb_year.cu``, ``max_layers``): a block of one warp must fit
+    the shared memory a block may use.  Builds the kernels on first use."""
+    return int(_lib_fn(f"{kernel}_max_layers_{_SUFFIX[dtype]}", [])())
+
+
+def kernel_config(n: int, dtype, device=None, kernel: str = "udeb_year") -> dict:
+    """``kernel``'s launch configuration at ``n`` layers on the current (or
+    given) card: threads per block, resident blocks per SM (from
     ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``) and shared bytes per
     block.  Raises above :func:`max_kernel_layers`."""
-    _check_layers(n, dtype)
+    _check_layers(n, dtype, kernel)
     p = ctypes.POINTER
     fn = _lib_fn(f"udeb_year_config_{_SUFFIX[dtype]}",
-                 [ctypes.c_int, p(ctypes.c_int), p(ctypes.c_int), p(ctypes.c_longlong)])
+                 [ctypes.c_int, ctypes.c_int, p(ctypes.c_int), p(ctypes.c_int),
+                  p(ctypes.c_longlong)])
     threads, blocks, smem = ctypes.c_int(), ctypes.c_int(), ctypes.c_longlong()
     with torch.cuda.device(device if device is not None else torch.cuda.current_device()):
-        err = fn(n, ctypes.byref(threads), ctypes.byref(blocks), ctypes.byref(smem))
+        err = fn(_KINDS[kernel], n, ctypes.byref(threads), ctypes.byref(blocks),
+                 ctypes.byref(smem))
     if err != 0:
-        raise RuntimeError(f"udeb_year: no launch configuration at {n} layers (CUDA error {err})")
+        raise RuntimeError(f"{kernel}: no launch configuration at {n} layers (CUDA error {err})")
     return {"threads": threads.value, "blocks_per_sm": blocks.value, "shared_bytes": smem.value}
 
 
@@ -493,8 +934,8 @@ def udeb_year(st: UdebStatic, scal, ocean, init_prof, vec):
     CPU tensors take :func:`udeb_year_plain`, at any layer count, and
     autograd goes through it.  CUDA tensors launch the kernel (built on
     first use) at any layer count up to :func:`max_kernel_layers`, through
-    :class:`UdebYearFunction`, so gradients in both modes come from the
-    plain version; anything the kernel cannot take raises.
+    :class:`UdebYearFunction`, whose derivatives in both modes are kernels
+    too; anything a kernel cannot take raises.
     """
     _check(st, scal, ocean, init_prof, vec)
     if ocean.device.type == "cpu":
@@ -505,16 +946,17 @@ def udeb_year(st: UdebStatic, scal, ocean, init_prof, vec):
 
 
 class UdebYearFunction(torch.autograd.Function):
-    """The kernel's forward with the plain version's derivatives.
+    """The kernel and its derivative kernels.
 
-    The twin of the JAX package's ``custom_jvp`` around the Pallas kernel
-    (``_year_jvp`` differentiates ``_ref_single``, ``udeb_month.py:530-548``):
-    there is no backward kernel.  ``forward`` launches the CUDA kernel
-    (:func:`_udeb_year_forward`; on CPU tensors, as the tests call it, the
-    plain version without a tape); ``backward`` recomputes
-    :func:`udeb_year_plain` on the saved inputs under autograd and takes
-    its vector-Jacobian product; ``jvp`` takes the plain version's
-    Jacobian-vector product with ``torch.func.jvp``.
+    The JAX package wraps its Pallas kernel in a ``custom_jvp`` whose rule
+    differentiates the kernel's ``jnp`` reference (``_year_jvp``,
+    ``rscm_tpu/ops/udeb_month.py:542-546``).  Here ``forward`` launches the
+    CUDA kernel (:func:`_udeb_year_forward`), ``jvp`` the tangent kernel
+    (:func:`udeb_year_jvp`) and ``backward`` the adjoint kernel
+    (:func:`udeb_year_vjp`), each on the saved inputs.  On CPU tensors, as
+    the tests call it, they take the plain versions: the forward without a
+    tape, ``plain_jvp`` of :func:`udeb_year_plain`, and the explicit adjoint
+    :func:`udeb_year_vjp_plain`.
     """
 
     @staticmethod
@@ -530,14 +972,12 @@ class UdebYearFunction(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g_ocean, g_vec):
-        return (None, *plain_vjp(
-            functools.partial(udeb_year_plain, ctx.st), ctx.saved_tensors,
-            ctx.needs_input_grad[1:], (g_ocean, g_vec),
-        ))
+        return (None, *udeb_year_vjp(ctx.st, *ctx.saved_tensors, g_ocean, g_vec,
+                                     needs=ctx.needs_input_grad[1:]))
 
     @staticmethod
     def jvp(ctx, _st_t, *tangents):
-        return plain_jvp(functools.partial(udeb_year_plain, ctx.st), ctx.saved_tensors, tangents)
+        return udeb_year_jvp(ctx.st, ctx.saved_tensors, tangents)
 
 
 def _udeb_year_forward(st: UdebStatic, scal, ocean, init_prof, vec):
@@ -545,38 +985,148 @@ def _udeb_year_forward(st: UdebStatic, scal, ocean, init_prof, vec):
     if ocean.device.type == "cpu":
         with torch.no_grad():
             return udeb_year_plain(st, scal, ocean, init_prof, vec)
-    if ocean.dtype not in _SUFFIX:
-        raise TypeError(f"udeb_year: the kernel takes float32 or float64, not {ocean.dtype}")
-    _check_layers(st.n, ocean.dtype)
-    for name, x in (("scal", scal), ("ocean", ocean), ("vec", vec)):
-        if not x.is_contiguous():
-            raise ValueError(f"udeb_year: {name} must be contiguous")
+    return _udeb_year_launch(st, scal, ocean, init_prof, vec)
 
+
+def _udeb_year_launch(st: UdebStatic, scal, ocean, init_prof, vec):
+    _check_kernel_inputs("udeb_year", st, ocean.dtype, scal=scal, ocean=ocean, vec=vec)
     b = ocean.shape[-1]
-    p = ctypes.c_void_p
-    fn = _lib_fn(f"udeb_year_{_SUFFIX[ocean.dtype]}",
-                 [p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, p, p, p, p,
-                  ctypes.c_longlong, ctypes.c_longlong, p, p, p, ctypes.c_longlong, p])
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     consts, layers = _kernel_geom(st, ocean.dtype, ocean.device)
     ocean_out = torch.empty_like(ocean)
     vec_out = torch.empty((8, b), dtype=ocean.dtype, device=ocean.device)
-    with torch.cuda.device(ocean.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(
+    _launch("udeb_year", _SUFFIX[ocean.dtype],
+            [p, i, i, i, i, p, p, p, p, ll, ll, p, p, p, ll], ocean.device,
             consts.ctypes.data, consts.size, st.n, st.steps, int(st.land_heat_enabled),
             layers.data_ptr(), scal.data_ptr(), ocean.data_ptr(), init_prof.data_ptr(),
             init_prof.stride(0), init_prof.stride(1),
-            vec.data_ptr(), ocean_out.data_ptr(), vec_out.data_ptr(), b, stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"udeb_year: kernel launch failed with CUDA error {err}")
+            vec.data_ptr(), ocean_out.data_ptr(), vec_out.data_ptr(), b)
     udeb_year.launches += 1
     note_launch("udeb_year", udeb_year_work, st, scal, ocean, init_prof, vec)
     return ocean_out, vec_out
 
 
+def udeb_year_jvp(st: UdebStatic, primals, tangents):
+    """The tangents ``(ocean (2 n, B), vec (8, B))`` of one year's outputs
+    from those of its inputs ``(scal, ocean, init_prof, vec)`` (a missing
+    tangent is zero), at ``primals``.
+
+    CPU tensors take ``plain_jvp`` of :func:`udeb_year_plain`.  CUDA
+    tensors launch the tangent kernel (``udeb_year_jvp_kernel``,
+    ``csrc/udeb_year.cu``), which replaces the JAX package's rule
+    ``_year_jvp`` (``rscm_tpu/ops/udeb_month.py:542-546``, not a
+    ``pallas_call``): the forward month on dual numbers, two threads a
+    member.  *Bound:* operations at a large batch (~3x the forward's
+    arithmetic); at a gradient's batch (1-512 members) the serial chain of
+    each member's months.  *Design:* the forward's own month code, so the
+    values are the forward's bit for bit and every branch decides on them;
+    the column and c' as dual numbers in shared memory, which halves the
+    layer limit (:func:`max_kernel_layers` of ``"udeb_year_jvp"``).  A
+    broadcast initial profile and its tangent keep their strides.
+    """
+    if primals[1].device.type == "cpu":
+        return plain_jvp(functools.partial(udeb_year_plain, st), primals, tangents)
+    return _udeb_year_jvp_launch(st, primals, tangents)
+
+
+def _udeb_year_jvp_launch(st: UdebStatic, primals, tangents):
+    scal, ocean, init_prof, vec = primals
+    _check(st, *primals)
+    dense = [torch.zeros_like(x) if t is None else t.contiguous()
+             for x, t in zip((scal, ocean, vec), (tangents[0], tangents[1], tangents[3]))]
+    t_init = tangents[2]
+    if t_init is None:  # a zero, staged like a broadcast profile
+        t_init = torch.zeros((1, 1), dtype=ocean.dtype, device=ocean.device).expand_as(init_prof)
+    _check_kernel_inputs("udeb_year_jvp", st, ocean.dtype, scal=scal, ocean=ocean, vec=vec,
+                         t_scal=dense[0], t_ocean=dense[1], t_vec=dense[2])
+    b = ocean.shape[-1]
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    consts, layers = _kernel_geom(st, ocean.dtype, ocean.device)
+    t_ocean_out = torch.empty_like(ocean)
+    t_vec_out = torch.empty((8, b), dtype=ocean.dtype, device=ocean.device)
+    _launch("udeb_year_jvp", _SUFFIX[ocean.dtype],
+            [p, i, i, i, i, p, p, p, p, p, p, ll, ll, p, ll, ll, p, p, p, p, ll], ocean.device,
+            consts.ctypes.data, consts.size, st.n, st.steps, int(st.land_heat_enabled),
+            layers.data_ptr(), scal.data_ptr(), dense[0].data_ptr(), ocean.data_ptr(),
+            dense[1].data_ptr(), init_prof.data_ptr(), init_prof.stride(0), init_prof.stride(1),
+            t_init.data_ptr(), t_init.stride(0), t_init.stride(1), vec.data_ptr(),
+            dense[2].data_ptr(), t_ocean_out.data_ptr(), t_vec_out.data_ptr(), b)
+    udeb_year_jvp.launches += 1
+    note_launch("udeb_year_jvp", udeb_year_jvp_work, st, scal, ocean, init_prof, vec)
+    return t_ocean_out, t_vec_out
+
+
+def udeb_year_vjp(st: UdebStatic, scal, ocean, init_prof, vec, g_ocean, g_vec,
+                  needs=(True, True, True, True)):
+    """The cotangents ``(scal, ocean, init_prof, vec)`` of one year's
+    inputs from those of its outputs (``None`` reads as zero), ``None``
+    where ``needs`` is False.  ``init_prof``'s comes dense ``(2 n, B)``;
+    autograd sums it back over a broadcast.
+
+    CPU tensors take :func:`udeb_year_vjp_plain`.  CUDA tensors launch the
+    adjoint kernel (``udeb_year_vjp_kernel``, ``csrc/udeb_year.cu``), which
+    replaces the JAX package's rule ``_year_jvp`` transposed by JAX
+    (``rscm_tpu/ops/udeb_month.py:542-546``, not a ``pallas_call``).
+    *Bound:* operations at a large batch (~4x the forward's arithmetic:
+    the replay, each month's rebuild and its adjoint); at a gradient's
+    batch the serial chain of each member's months, run twice.  *Design:*
+    the forward's own month code writes each month's starting state to a
+    scratch buffer (``steps x (2 n + 8)`` values a member, from
+    ``torch.empty``), so the adjoint differentiates at the forward's state
+    bit for bit; each month is rebuilt in shared memory from its checkpoint
+    and reversed there, two threads a member swapping their cotangents with
+    a warp shuffle; the scalar rows' cotangents accumulate in registers.
+    """
+    needs = tuple(needs)
+    if ocean.device.type == "cpu":
+        grads = udeb_year_vjp_plain(st, scal, ocean, init_prof, vec, g_ocean, g_vec)
+    else:
+        grads = _udeb_year_vjp_launch(st, scal, ocean, init_prof, vec, g_ocean, g_vec)
+    return tuple(g if need else None for g, need in zip(grads, needs))
+
+
+def _udeb_year_vjp_launch(st: UdebStatic, scal, ocean, init_prof, vec, g_ocean, g_vec):
+    _check(st, scal, ocean, init_prof, vec)
+    n, b = st.n, ocean.shape[-1]
+    like = dict(dtype=ocean.dtype, device=ocean.device)
+    g_ocean = torch.zeros((2 * n, b), **like) if g_ocean is None else g_ocean.contiguous()
+    g_vec = torch.zeros((8, b), **like) if g_vec is None else g_vec.contiguous()
+    _check_kernel_inputs("udeb_year_vjp", st, ocean.dtype, scal=scal, ocean=ocean, vec=vec,
+                         g_ocean=g_ocean, g_vec=g_vec)
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    consts, layers = _kernel_geom(st, ocean.dtype, ocean.device)
+    grads = (torch.empty((S + 2, b), **like), torch.empty((2 * n, b), **like),
+             torch.empty((2 * n, b), **like), torch.empty((10, b), **like))
+    scratch = torch.empty((st.steps * (2 * n + 8), b), **like)
+    _launch("udeb_year_vjp", _SUFFIX[ocean.dtype],
+            [p, i, i, i, i, p, p, p, p, ll, ll, p, p, p, p, p, p, p, p, ll], ocean.device,
+            consts.ctypes.data, consts.size, n, st.steps, int(st.land_heat_enabled),
+            layers.data_ptr(), scal.data_ptr(), ocean.data_ptr(), init_prof.data_ptr(),
+            init_prof.stride(0), init_prof.stride(1), vec.data_ptr(), g_ocean.data_ptr(),
+            g_vec.data_ptr(), *(g.data_ptr() for g in grads), scratch.data_ptr(), b)
+    udeb_year_vjp.launches += 1
+    note_launch("udeb_year_vjp", udeb_year_vjp_work, st, scal, ocean, init_prof, vec, g_ocean,
+                g_vec)
+    return grads
+
+
 #: members of a launch whose plain version is counted for its work
 _WORK_SAMPLE = 256
+
+
+def _input_bytes(st: UdebStatic, scal, ocean, vec):
+    """Bytes of one year's inputs read once: the scalar rows, the ocean, a
+    profile (one column when it is broadcast, else every member's) and the
+    vector state."""
+    return scal.element_size() * (scal.numel() + ocean.numel() + 2 * st.n + vec.numel())
+
+
+def _sampled(fn, st, b, *tensors):
+    """``(other, divisions)`` of ``fn`` on the first members of a launch,
+    which every member repeats, scaled to the batch ``b``."""
+    k = min(b, _WORK_SAMPLE)
+    other, divisions = count_arithmetic(fn, st, *(x[:, :k] for x in tensors))
+    return other / k * b, divisions / k * b
 
 
 def udeb_year_work(st: UdebStatic, scal, ocean, init_prof, vec):
@@ -585,15 +1135,43 @@ def udeb_year_work(st: UdebStatic, scal, ocean, init_prof, vec):
     first members, which every member repeats, scaled to the batch; the
     bytes of each input read once and each output written once."""
     b = ocean.shape[-1]
-    k = min(b, _WORK_SAMPLE)
-    other, divisions = count_arithmetic(
-        udeb_year_plain, st, scal[:, :k], ocean[:, :k], init_prof[:, :k], vec[:, :k]
-    )
-    nbytes = scal.element_size() * (
-        scal.numel() + ocean.numel() + 2 * st.n + vec.numel() + ocean.numel() + 8 * b
-    )
-    return other / k * b, divisions / k * b, nbytes
+    other, divisions = _sampled(udeb_year_plain, st, b, scal, ocean, init_prof, vec)
+    return other, divisions, _input_bytes(st, scal, ocean, vec) + scal.element_size() * (
+        ocean.numel() + 8 * b)
 
 
-#: kernel launches since the count was last set to 0
+def _jvp_of_plain(st, scal, ocean, init_prof, vec):
+    """The tangent of :func:`udeb_year_plain` along the inputs themselves
+    (what the tangent kernel computes, for its work)."""
+    primals = (scal, ocean, init_prof, vec)
+    return plain_jvp(functools.partial(udeb_year_plain, st), primals, primals)
+
+
+def udeb_year_jvp_work(st: UdebStatic, scal, ocean, init_prof, vec):
+    """``(operations, divisions, bytes)`` of one tangent launch: the
+    arithmetic of ``plain_jvp`` of the plain version on the first members,
+    scaled; each input and its tangent read once, each output tangent
+    written once."""
+    b = ocean.shape[-1]
+    other, divisions = _sampled(_jvp_of_plain, st, b, scal, ocean, init_prof, vec)
+    return other, divisions, 2 * _input_bytes(st, scal, ocean, vec) + scal.element_size() * (
+        ocean.numel() + 8 * b)
+
+
+def udeb_year_vjp_work(st: UdebStatic, scal, ocean, init_prof, vec, g_ocean, g_vec):
+    """``(operations, divisions, bytes)`` of one adjoint launch: the
+    arithmetic of :func:`udeb_year_vjp_plain` on the first members,
+    scaled; the inputs and the cotangents read once, the four cotangents
+    written once (the checkpoint is the kernel's own traffic)."""
+    b = ocean.shape[-1]
+    other, divisions = _sampled(udeb_year_vjp_plain, st, b, scal, ocean, init_prof, vec,
+                                g_ocean, g_vec)
+    size = scal.element_size()
+    read = _input_bytes(st, scal, ocean, vec) + size * (ocean.numel() + 8 * b)
+    return other, divisions, read + size * (scal.numel() + 2 * ocean.numel() + vec.numel())
+
+
+#: kernel launches since each count was last set to 0
 udeb_year.launches = 0
+udeb_year_jvp.launches = 0
+udeb_year_vjp.launches = 0

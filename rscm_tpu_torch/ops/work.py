@@ -47,7 +47,11 @@ def count_arithmetic(fn, *args):
         def __torch_dispatch__(self, func, types, args=(), kwargs=None):
             out = func(*args, **(kwargs or {}))
             name = func.overloadpacket.__name__
-            if name in ARITHMETIC and isinstance(out, torch.Tensor) and out.is_floating_point():
+            # forward-mode AD of an operation with a constant operand also
+            # dispatches primitive (prims) operations on zero tangents, which
+            # a kernel does not perform: only aten operations count
+            if (func.namespace == "aten" and name in ARITHMETIC
+                    and isinstance(out, torch.Tensor) and out.is_floating_point()):
                 divides = name == "reciprocal" or (
                     name == "div" and isinstance(args[1], torch.Tensor))
                 counts["divisions" if divides else "other"] += out.numel()

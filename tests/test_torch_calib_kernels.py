@@ -3,9 +3,12 @@
 Neither Pallas kernel of the JAX package has a backward kernel: each sits
 in a ``jax.custom_jvp`` whose rule differentiates the kernel's ``jnp``
 reference.  The port's ``UdebYearFunction`` and ``LamcalcFunction`` launch
-the CUDA kernel forward and differentiate the plain PyTorch version in
-both modes.  Here, on the CPU, each Function runs with the plain version as
-its forward (a CUDA kernel runs only on the card, ``chip_smoke.py``):
+a forward, a tangent and an adjoint CUDA kernel on the card.  Here, on the
+CPU, each Function runs with the plain version as its forward, ``plain_jvp``
+of it as its ``jvp`` and the adjoint kernel's explicit twin
+(``udeb_year_vjp_plain``, ``lamcalc_vjp_plain``) as its ``backward`` (a
+CUDA kernel runs only on the card, ``chip_smoke.py``), so the reverse-mode
+checks below hold the twins' derivation:
 
 - ``torch.autograd.gradcheck`` (reverse and forward mode, in its fast
   mode: random projections of the Jacobian) passes on tiny float64 inputs;

@@ -230,8 +230,13 @@ def test_kernels_match_plain_versions_on_card(cuda, dtype, n_layers):
     x = torch.tensor(packed, dtype=dtype, device=cuda)
     torch.testing.assert_close(lamcalc_kernel.lamcalc(lst, x),
                                lamcalc_kernel.lamcalc_plain(lst, x), rtol=rtol, atol=rtol)
-    with pytest.raises(RuntimeError, match="backward"):
-        lamcalc_kernel.lamcalc(lst, x.clone().requires_grad_(True))
+    # the gradient goes through the adjoint kernel, which equals its twin
+    xg = x.clone().requires_grad_(True)
+    before = lamcalc_kernel.lamcalc_vjp.launches
+    (grad,) = torch.autograd.grad(lamcalc_kernel.lamcalc(lst, xg).sum(), xg)
+    assert lamcalc_kernel.lamcalc_vjp.launches == before + 1
+    torch.testing.assert_close(grad, lamcalc_kernel.lamcalc_vjp_plain(
+        lst, x, torch.ones((3, x.shape[1]), dtype=dtype, device=cuda)), rtol=rtol, atol=rtol)
 
 
 @pytest.mark.gpu
