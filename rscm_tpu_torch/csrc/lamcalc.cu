@@ -32,7 +32,8 @@
 //
 // Bound on an H100: arithmetic (~350 floating-point operations an iteration,
 // 6-7 iterations a typical member, against 72 bytes a member in float64; the
-// tangent kernel ~3x that, the adjoint ~4x).  At a gradient's batch (1-512
+// tangent kernel ~2.6x that, the adjoint ~2.4x where the function needs ~1.4x,
+// one forward and the adjoint).  At a gradient's batch (1-512
 // members) a launch is one member's serial iterations: latency.
 
 #include <cuda_runtime.h>

@@ -36,8 +36,9 @@
 // Bound on an H100: operations at a large batch.  A member-year is 2 columns
 // x 12 months x n layers of a serial Thomas step, each ~40 additions and
 // multiplications and 2 IEEE divisions, against ~(4n + 40) values in and
-// out; the tangent kernel does ~3x the forward's arithmetic, the adjoint ~4x
-// (the replay, the rebuild and the adjoint itself).  At the batches of a
+// out; the tangent kernel does ~2.5x the forward's arithmetic, the adjoint
+// ~3.5x (the replay, the rebuild and the adjoint itself) where the function
+// needs ~2.4x (one forward and the adjoint).  At the batches of a
 // gradient (one member for a MAP gradient, eight for one walker's forward
 // mode, 512 for 64 NUTS chains x 8) a launch is one serial chain of
 // dependent operations per member: latency.  Design:

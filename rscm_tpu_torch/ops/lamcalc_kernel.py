@@ -496,9 +496,11 @@ def lamcalc_vjp(st: LamStatic, packed, g_out):
     adjoint kernel (``lamcalc_vjp_kernel``, ``csrc/lamcalc.cu``), which
     replaces the JAX package's rule ``_jvp`` transposed by JAX
     (``rscm_tpu/ops/lamcalc_kernel.py:317-322``, not a ``pallas_call``).
-    *Bound:* operations at a large batch (the forward's iterations twice
-    and their adjoints); at a gradient's batch one member's serial
-    iterations.  *Design:* one thread a member replays its iterations with
+    *Bound:* operations at a large batch (the function needs ~1.4x the
+    forward's arithmetic, one forward and the adjoint; the kernel performs
+    ~2.4x, with the replay and the temperatures its reverse pass
+    recomputes); at a gradient's batch one member's serial iterations.
+    *Design:* one thread a member replays its iterations with
     the forward's code, keeping each iterate, its ratio and its update's
     branch in local memory (at most 39), then reverses them from the one
     it converged at; the cofactor inverse is reversed as ``-(M^-T y_bar)
@@ -543,16 +545,19 @@ def _launch(kernel: str, st: LamStatic, packed, out, *inputs):
 _WORK_SAMPLE = 256
 
 
-def _scaled_work(st: LamStatic, packed, fn, *args):
+def _scaled_work(st: LamStatic, packed, fn, *args, seeds=0):
     """``(other, divisions)`` of ``fn(st, sample, *args' samples)`` on the
     first members, over the iterations the slowest of them runs, times the
     iterations each member of the batch needs (each kernel stops a member
-    when it converges)."""
+    when it converges); with ``seeds``, only the arithmetic that reads the
+    last ``seeds`` of ``args``."""
     b = packed.shape[1]
     k = min(b, _WORK_SAMPLE)
     sample = packed[:, :k]
     steps = int(lamcalc_plain_with_iterations(st, sample)[1].max())
-    other, divisions = count_arithmetic(fn, st, sample, *(a[:, :k] for a in args))
+    arg_samples = [a[:, :k] for a in args]
+    only_from = arg_samples[len(arg_samples) - seeds:] if seeds else None
+    other, divisions = count_arithmetic(fn, st, sample, *arg_samples, only_from=only_from)
     iterations = float(lamcalc_plain_with_iterations(st, packed)[1].double().sum())
     scale = iterations / (k * steps)
     return other * scale, divisions * scale
@@ -585,12 +590,17 @@ def lamcalc_jvp_work(st: LamStatic, packed):
 
 
 def lamcalc_vjp_work(st: LamStatic, packed, g_out):
-    """``(operations, divisions, bytes)`` of one adjoint launch: the
-    arithmetic of :func:`lamcalc_vjp_plain`, scaled as
+    """``(operations, divisions, bytes)`` of one adjoint launch: one
+    forward (:func:`lamcalc_work`'s arithmetic) and the arithmetic of
+    :func:`lamcalc_vjp_plain` that reads the output's cotangent, scaled as
     :func:`lamcalc_work` scales it; the input and the output's cotangent
-    read once, the input's cotangent written once."""
+    read once, the input's cotangent written once.  The replay and the
+    temperatures the reverse pass recomputes are the kernel's choice, not
+    work the function needs, and are not counted."""
     nbytes = packed.element_size() * (2 * packed.numel() + S_OUT * packed.shape[1])
-    return (*_scaled_work(st, packed, lamcalc_vjp_plain, g_out), nbytes)
+    fwd_other, fwd_divisions, _ = lamcalc_work(st, packed)
+    other, divisions = _scaled_work(st, packed, lamcalc_vjp_plain, g_out, seeds=1)
+    return other + fwd_other, divisions + fwd_divisions, nbytes
 
 
 #: kernel launches since each count was last set to 0

@@ -1067,9 +1067,11 @@ def udeb_year_vjp(st: UdebStatic, scal, ocean, init_prof, vec, g_ocean, g_vec,
     adjoint kernel (``udeb_year_vjp_kernel``, ``csrc/udeb_year.cu``), which
     replaces the JAX package's rule ``_year_jvp`` transposed by JAX
     (``rscm_tpu/ops/udeb_month.py:542-546``, not a ``pallas_call``).
-    *Bound:* operations at a large batch (~4x the forward's arithmetic:
-    the replay, each month's rebuild and its adjoint); at a gradient's
-    batch the serial chain of each member's months, run twice.  *Design:*
+    *Bound:* operations at a large batch (the function needs ~2.4x the
+    forward's arithmetic, one forward and the adjoint; the kernel performs
+    ~3.5x, with the replay, each month's rebuild and the values its
+    reverse pass recomputes); at a gradient's batch the serial chain of
+    each member's months, run twice.  *Design:*
     the forward's own month code writes each month's starting state to a
     scratch buffer (``steps x (2 n + 8)`` values a member, from
     ``torch.empty``), so the adjoint differentiates at the forward's state
@@ -1121,11 +1123,14 @@ def _input_bytes(st: UdebStatic, scal, ocean, vec):
     return scal.element_size() * (scal.numel() + ocean.numel() + 2 * st.n + vec.numel())
 
 
-def _sampled(fn, st, b, *tensors):
+def _sampled(fn, st, b, *tensors, seeds=0):
     """``(other, divisions)`` of ``fn`` on the first members of a launch,
-    which every member repeats, scaled to the batch ``b``."""
+    which every member repeats, scaled to the batch ``b``; with ``seeds``,
+    only the arithmetic that reads the last ``seeds`` tensors."""
     k = min(b, _WORK_SAMPLE)
-    other, divisions = count_arithmetic(fn, st, *(x[:, :k] for x in tensors))
+    sample = [x[:, :k] for x in tensors]
+    only_from = sample[len(sample) - seeds:] if seeds else None
+    other, divisions = count_arithmetic(fn, st, *sample, only_from=only_from)
     return other / k * b, divisions / k * b
 
 
@@ -1159,13 +1164,18 @@ def udeb_year_jvp_work(st: UdebStatic, scal, ocean, init_prof, vec):
 
 
 def udeb_year_vjp_work(st: UdebStatic, scal, ocean, init_prof, vec, g_ocean, g_vec):
-    """``(operations, divisions, bytes)`` of one adjoint launch: the
-    arithmetic of :func:`udeb_year_vjp_plain` on the first members,
-    scaled; the inputs and the cotangents read once, the four cotangents
-    written once (the checkpoint is the kernel's own traffic)."""
+    """``(operations, divisions, bytes)`` of one adjoint launch: one
+    forward (:func:`udeb_year_work`'s arithmetic) and the arithmetic of
+    :func:`udeb_year_vjp_plain` that reads the cotangents, on the first
+    members, scaled; the inputs and the cotangents read once, the four
+    cotangents written once.  The month's replay, the forward values the
+    reverse pass recomputes and the checkpoint's traffic are the kernel's
+    choice, not work the function needs, and are not counted."""
     b = ocean.shape[-1]
+    fwd_other, fwd_divisions, _ = udeb_year_work(st, scal, ocean, init_prof, vec)
     other, divisions = _sampled(udeb_year_vjp_plain, st, b, scal, ocean, init_prof, vec,
-                                g_ocean, g_vec)
+                                g_ocean, g_vec, seeds=2)
+    other, divisions = other + fwd_other, divisions + fwd_divisions
     size = scal.element_size()
     read = _input_bytes(st, scal, ocean, vec) + size * (ocean.numel() + 8 * b)
     return other, divisions, read + size * (scal.numel() + 2 * ocean.numel() + vec.numel())

@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import contextlib
 import contextvars
+import weakref
 
 import torch
 
@@ -30,7 +31,7 @@ ARITHMETIC = frozenset({
 _OBSERVER = contextvars.ContextVar("kernel_launch_observer", default=None)
 
 
-def count_arithmetic(fn, *args):
+def count_arithmetic(fn, *args, only_from=None):
     """Floating-point arithmetic operations ``fn`` performs, as ``(other,
     divisions)``: elementwise add/sub/mul/min/max counted once per output
     element; a division by a tensor (or a reciprocal) counted apart, since
@@ -38,10 +39,29 @@ def count_arithmetic(fn, *args):
     multiplication by its reciprocal in the kernel (and in PyTorch's CUDA
     division) and counts as other.  Negations and absolute values are not
     counted: in the kernels' SASS they are operand modifiers of the
-    instruction that uses them."""
+    instruction that uses them.
+
+    With ``only_from`` (tensors among ``args``), an operation counts only
+    if it reads one of them, directly or through an earlier result: an
+    adjoint's arithmetic on its cotangents, without the forward values it
+    replays or recomputes from the primal inputs alone."""
     from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_leaves
 
     counts = {"other": 0, "divisions": 0}
+    # the live tensors computed from ``only_from``, by id (an entry goes with
+    # its tensor, so a reused id is not taken for it)
+    reached = None if only_from is None else weakref.WeakValueDictionary(
+        {id(t): t for t in only_from})
+
+    def reads_seed(args, kwargs, out):
+        if reached is None:
+            return True
+        if not any(id(x) in reached for x in tree_leaves((args, kwargs))
+                   if isinstance(x, torch.Tensor)):
+            return False
+        reached.update((id(x), x) for x in tree_leaves(out) if isinstance(x, torch.Tensor))
+        return True
 
     class Count(TorchDispatchMode):
         def __torch_dispatch__(self, func, types, args=(), kwargs=None):
@@ -50,7 +70,8 @@ def count_arithmetic(fn, *args):
             # forward-mode AD of an operation with a constant operand also
             # dispatches primitive (prims) operations on zero tangents, which
             # a kernel does not perform: only aten operations count
-            if (func.namespace == "aten" and name in ARITHMETIC
+            if (reads_seed(args, kwargs, out) and func.namespace == "aten"
+                    and name in ARITHMETIC
                     and isinstance(out, torch.Tensor) and out.is_floating_point()):
                 divides = name == "reciprocal" or (
                     name == "div" and isinstance(args[1], torch.Tensor))

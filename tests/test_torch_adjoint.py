@@ -248,3 +248,58 @@ def test_tangent_work_counts_the_dual_arithmetic_a_tangent_kernel_performs():
     counted = count_arithmetic(
         lambda a, b: plain_jvp(lambda v: (v * 2.5 + 1.0) / (y + 3.0), (a,), (b,)), x, t)
     assert counted == (3 * 5 + 5, 2 * 5)  # (y + 3.0) is one more addition
+
+
+def test_only_from_counts_the_arithmetic_that_reads_the_given_tensors():
+    """With ``only_from``, ``count_arithmetic`` counts an operation only if
+    it reads one of the given tensors, directly or through an earlier
+    result: in ``g * (x * 2.5 + 1.0) + g``, the two operations on ``g``,
+    not the two that make the factor from ``x`` alone."""
+    from rscm_tpu_torch.ops.work import count_arithmetic
+
+    x, g = (torch.tensor(np.random.default_rng(k).normal(size=5)) for k in range(2))
+
+    def fn(a, b):
+        return b * (a * 2.5 + 1.0) + b
+
+    assert count_arithmetic(fn, x, g) == (4 * 5, 0)
+    assert count_arithmetic(fn, x, g, only_from=(g,)) == (2 * 5, 0)
+
+
+@pytest.mark.parametrize("kernel, replays", [("udeb_year", 2), ("lamcalc", 1)])
+def test_adjoint_work_is_one_forward_and_the_twins_arithmetic_on_cotangents(kernel, replays):
+    """An adjoint kernel's work (its roofline bound) counts one forward and
+    the arithmetic of its twin that reads the cotangents: not the forwards
+    the twin replays (the year's, then each month's again for
+    ``udeb_year``; the iterations' for ``lamcalc``), nor the forward values
+    its reverse pass recomputes, which are the kernel's design and not work
+    the function needs.  (The
+    LAMCALC counts are scaled from the slowest member's iterations to the
+    iterations each member runs.)"""
+    from rscm_tpu_torch.ops.work import count_arithmetic
+
+    rng = np.random.default_rng(4)
+    scale = 1.0
+    if kernel == "udeb_year":
+        st, arrays, _ = udeb_case("n3")
+        primals = [torch.tensor(a) for a in arrays]
+        cots = [torch.tensor(rng.normal(size=arrays[1].shape)),
+                torch.tensor(rng.normal(size=(8, B)))]
+        fwd = udeb_month.udeb_year_work(st, *primals)
+        work = udeb_month.udeb_year_vjp_work(st, *primals, *cots)
+        twin = (udeb_month.udeb_year_vjp_plain, st, *primals, *cots)
+    else:
+        kwargs, fallback, packed = lamcalc_setup(b=8, seed=2)
+        st = lamcalc_kernel.lam_static(LamcalcParams(**kwargs), fallback)
+        primals = [torch.tensor(packed)]
+        cots = [torch.tensor(rng.normal(size=(3, 8)))]
+        fwd = lamcalc_kernel.lamcalc_work(st, *primals)
+        work = lamcalc_kernel.lamcalc_vjp_work(st, *primals, *cots)
+        twin = (lamcalc_kernel.lamcalc_vjp_plain, st, *primals, *cots)
+        iterations = lamcalc_kernel.lamcalc_plain_with_iterations(st, *primals)[1].double()
+        scale = float(iterations.sum() / (8 * iterations.max()))
+    on_cotangents = [c * scale for c in count_arithmetic(*twin, only_from=cots)]
+    whole = [c * scale for c in count_arithmetic(*twin)]
+    for k in range(2):
+        assert work[k] == pytest.approx(fwd[k] + on_cotangents[k], rel=1e-12)
+        assert whole[k] - on_cotangents[k] > replays * fwd[k]
