@@ -148,7 +148,22 @@ Phases, each printed with its elapsed time:
               the DE move, with a checkpoint round trip; NUTS, 64 chains,
               tree depth 2, one warmup iteration and one transition at
               1850-1860, with ``grad_mode="rev"`` and ``"auto"`` (forward
-              mode).
+              mode);
+13. compat -- the reference-API surface (``rscm_tpu_torch.compat``) on the
+              card, with no ``device=`` given: the ten-component MAGICC
+              graph (1850-2100, 50 layers, one member) assembled from the
+              ``compat.magicc`` builders with ``with_rust_component`` and
+              run by ``Model.run()``, 250 launches of each kernel, bit-equal
+              to ``build_magicc_model()``'s run; the idioms of
+              ``tests/test_rscm_compat.py`` (the two-layer builder model, the
+              TOML round trip, a typed Python component reading
+              ``previous`` / ``last_n`` through the reference windows built
+              from CUDA tensors, ``PointEstimator.optimize(
+              Optimizer.RandomSearch, 25)`` over a ``DefaultModelRunner``),
+              each against the same code on the CPU within 1e-10; the
+              windows from CUDA tensors against the same windows from numpy
+              (the same values, the same exceptions); the phase's wall, the
+              MAGICC run's warm wall and its launches.
 
 ``python3 chip_smoke.py PHASE ...`` runs the device and build phases and the
 named later phases only (``kernels`` and ``timing`` go with ``main``;
@@ -262,6 +277,11 @@ MESH = {"members": 100_000, "uneven": 100_001, "shards": 2, "fullmagicc_members"
 #: and the split sampler's chain against the unsplit chain (rtol, atol: the
 #: JAX package's bar, tests/test_ensemble.py:342-345)
 MESH_TOL = (1e-12, 0.0)
+#: the compat phase: the reference-idiom MAGICC graph's axis, the two-layer
+#: model's axis (tests/test_rscm_compat.py), the points RandomSearch draws,
+#: and the bar of each idiom's card run against the CPU (the host phase's)
+COMPAT = {"magicc_years": (1850.0, 2100.0), "two_layer_years": (2000.0, 2014.0),
+          "random_search": 25, "tol": (1e-10, 1e-10)}
 DEVICE = "cuda"
 #: kernel vs plain version, |kernel - plain| <= atol + rtol * |plain|.  Both do
 #: the same operations in the same order and the kernels are built with
@@ -2718,9 +2738,339 @@ def phase_calibrate(smi):
         "lamcalc_vjp": {"launches": grad_launches["lamcalc_vjp"]},
     }
 
+def compat_magicc(years):
+    """``build_magicc_model()``'s graph (its parameters, exogenous inputs and
+    component order) assembled with the reference's idiom: each component
+    from its ``compat.magicc`` builder, added with ``with_rust_component``."""
+    from rscm_tpu_torch.compat import core, magicc
+    from rscm_tpu_torch.magicc.coupled import (INITIAL_VALUES, build_magicc_schema,
+                                               idealised_emissions)
+
+    emissions = idealised_emissions(years)
+    pi = {gas: INITIAL_VALUES[f"Atmospheric Concentration|{gas.upper()}"]
+          for gas in ("co2", "ch4", "n2o")}
+    builders = [
+        magicc.CH4ChemistryBuilder.from_parameters({"ch4_pi": pi["ch4"]}),
+        magicc.N2OChemistryBuilder.from_parameters({"n2o_pi": pi["n2o"]}),
+        magicc.GhgForcingBuilder.from_parameters({
+            "method": "Ipcctar", "co2_pi": pi["co2"], "ch4_pi": pi["ch4"], "n2o_pi": pi["n2o"],
+            "adjust_co2": 1.0, "adjust_ch4": 1.0, "adjust_n2o": 1.0,
+        }),
+        magicc.OzoneForcingBuilder.from_parameters({}),
+        magicc.AerosolDirectBuilder.from_parameters({}),
+        magicc.AerosolIndirectBuilder.from_parameters({}),
+        magicc.ClimateUDEBBuilder.from_parameters({"ecs": 3.0}),
+        magicc.TerrestrialCarbonBuilder.from_parameters({}),
+        magicc.OceanCarbonBuilder.from_parameters({"max_history_months": 12 * (len(years) + 1)}),
+        magicc.CO2BudgetBuilder.from_parameters({}),
+    ]
+    axis = core.TimeAxis.from_values(years)
+    builder = core.ModelBuilder().with_time_axis(axis).with_schema(
+        build_magicc_schema(emissions))
+    for component in builders:
+        builder = builder.with_rust_component(component.build())
+    for name, (values, unit) in emissions.items():
+        builder = builder.with_exogenous_variable(name, core.Timeseries(values, axis, unit))
+    return builder.with_initial_values(dict(INITIAL_VALUES)).build()
+
+
+def compat_two_layer(years, lambda0=1.0):
+    """``tests/test_rscm_compat.py``'s two-layer model through
+    ``TwoLayerBuilder`` and ``with_rust_component``."""
+    import numpy as np
+
+    from rscm_tpu_torch.compat.core import ModelBuilder, TimeAxis, Timeseries
+    from rscm_tpu_torch.compat.two_layer import TwoLayerBuilder
+
+    component = TwoLayerBuilder.from_parameters({
+        "lambda0": float(lambda0), "a": 0.0, "efficacy": 1.0, "eta": 0.7,
+        "heat_capacity_surface": 8.0, "heat_capacity_deep": 100.0,
+    }).build()
+    return (
+        ModelBuilder()
+        .with_time_axis(TimeAxis.from_values(years))
+        .with_rust_component(component)
+        .with_exogenous_variable(
+            "Effective Radiative Forcing",
+            Timeseries(np.full(len(years), 3.7), TimeAxis.from_values(years), "W/m^2"))
+        .with_initial_values({"Surface Temperature": 0.0, "Deep Ocean Temperature": 0.0})
+        .build()
+    )
+
+
+def compat_toml_model():
+    """``tests/test_rscm_compat.py``'s TOML model (``TestComponentBuilder``)."""
+    import numpy as np
+
+    from rscm_tpu_torch.compat.core import ModelBuilder, TimeAxis, Timeseries
+    from rscm_tpu_torch.compat.example_components import TestComponentBuilder
+
+    years = np.arange(2020.0, 2025.0)
+    return (
+        ModelBuilder()
+        .with_time_axis(TimeAxis.from_values(years))
+        .with_rust_component(
+            TestComponentBuilder.from_parameters({"conversion_factor": 2.0}).build())
+        .with_exogenous_variable(
+            "Emissions|CO2", Timeseries(np.arange(5.0), TimeAxis.from_values(years), "GtCO2"))
+        .build()
+    )
+
+
+def compat_typed_model(device):
+    """A typed Python component that reads its input's history through the
+    reference's ``TimeseriesWindow`` built from a tensor on ``device``:
+    the previous emission plus the mean of the last three."""
+    import numpy as np
+    import torch
+
+    from rscm_tpu_torch.compat.component import Component, Input, Output
+    from rscm_tpu_torch.compat.core import (ModelBuilder, PythonComponent, TimeAxis, Timeseries,
+                                            TimeseriesWindow)
+
+    class Lagged(Component, register=False):
+        emissions = Input("Emissions|CO2", unit="GtCO2")
+        concentration = Output("Concentrations|CO2", unit="ppm")
+
+        def solve(self, t_current, t_next, inputs):
+            history = torch.as_tensor(np.asarray(inputs.emissions.values), device=device)
+            window = TimeseriesWindow(history, int(inputs.emissions.current_index))
+            previous = window.previous if int(window.current_index) > 0 else window.at_offset(0)
+            if not (type(previous) is float and type(window.last_n(3)) is np.ndarray):
+                raise AssertionError("a reference window read returned a device value")
+            return self.Outputs(concentration=previous + float(np.mean(window.last_n(3))))
+
+    years = np.arange(2020.0, 2028.0)
+    return (
+        ModelBuilder()
+        .with_time_axis(TimeAxis.from_values(years))
+        .with_py_component(PythonComponent.build(Lagged()))
+        .with_exogenous_variable(
+            "Emissions|CO2",
+            Timeseries(np.arange(1.0, 9.0) ** 1.5, TimeAxis.from_values(years), "GtCO2"))
+        .build()
+    )
+
+
+def compat_point_estimator(device):
+    """``tests/test_rscm_compat.py``'s point estimation: lambda0 of the
+    two-layer model from one observation of its truth run, through a
+    ``DefaultModelRunner`` whose models run on ``device`` (None: the card)."""
+    import numpy as np
+
+    from rscm_tpu_torch.compat.calibrate import (DefaultModelRunner, GaussianLikelihood,
+                                                 ParameterSet, PointEstimator, Target, Uniform)
+
+    years = np.arange(COMPAT["two_layer_years"][0], COMPAT["two_layer_years"][1] + 1.0)
+    runner = DefaultModelRunner(["lambda0"], ["Surface Temperature"],
+                                lambda theta: compat_two_layer(years, theta[0]), device=device)
+    truth = compat_two_layer(years, 1.2)
+    truth.run(device=device)
+    temps = truth.timeseries().get_timeseries_by_name("Surface Temperature")
+    target = Target()
+    target.add_variable("Surface Temperature").add(2010.0, float(temps.at(10)), 0.05)
+    params = ParameterSet()
+    params.add("lambda0", Uniform(0.8, 1.8))
+    return PointEstimator(params, runner, GaussianLikelihood(), target)
+
+
+def compat_window_reads(window, n_regions):
+    """What the reference windows' reads return, in a comparable form, with
+    each ``ValueError``'s message; fails on a read that returns a tensor."""
+    import numpy as np
+    import torch
+
+    reads = {"previous": lambda: window.previous, "len": lambda: len(window)}
+    if n_regions == 1:
+        reads.update({f"at_offset({o})": (lambda o=o: window.at_offset(o))
+                      for o in (-7, -1, 0, 1, 7)})
+        reads.update({f"last_n({n})": (lambda n=n: window.last_n(n)) for n in (1, 3, 9)})
+        reads["to_array"] = window.to_array
+    else:
+        reads.update({f"region({r})": (lambda r=r: window.region(r).to_array())
+                      for r in (-1, 0, n_regions - 1, n_regions)})
+        reads.update({"at_start_all": window.at_start_all, "at_end_all": window.at_end_all})
+    out = {}
+    for name, read in reads.items():
+        try:
+            value = read()
+        except ValueError as exc:
+            out[name] = ("raises", str(exc))
+            continue
+        if isinstance(value, torch.Tensor):
+            raise AssertionError(f"{type(window).__name__}.{name} returned a tensor")
+        if hasattr(value, "as_array"):
+            value = (type(value).__name__, [float(v) for v in value.as_array()])
+        elif isinstance(value, np.ndarray):
+            value = ("array", value.dtype.str, value.tolist())
+        out[name] = value
+    return out
+
+
+def compat_windows_on_card():
+    """The reference windows built from CUDA tensors against the same
+    windows built from numpy: the same reads, the same exceptions (the
+    constructor's too)."""
+    import numpy as np
+    import torch
+
+    from rscm_tpu_torch.compat import core
+
+    rng = np.random.default_rng(11)
+    n_reads = 0
+    for cls, n_regions in ((core.TimeseriesWindow, 1), (core.FourBoxTimeseriesWindow, 4),
+                           (core.HemisphericTimeseriesWindow, 2)):
+        values = rng.normal(size=(7, n_regions))
+        on_card = torch.as_tensor(values, device=DEVICE)
+        for index in (0, 3, 6):
+            want = compat_window_reads(cls(values, index), n_regions)
+            got = compat_window_reads(cls(on_card, index), n_regions)
+            if got != want:
+                raise AssertionError(f"{cls.__name__} at index {index}: from a CUDA tensor "
+                                     f"{got} against from numpy {want}")
+            n_reads += len(got)
+        for bad, index in ((values, -1), (values, 7), (np.zeros((7, n_regions + 1)), 0)):
+            messages = []
+            for given in (bad, torch.as_tensor(bad, device=DEVICE)):
+                try:
+                    cls(given, index)
+                except ValueError as exc:
+                    messages.append(str(exc))
+            if len(messages) != 2 or messages[0] != messages[1]:
+                raise AssertionError(f"{cls.__name__}({bad.shape}, {index}): {messages}")
+    log(f"  reference windows from CUDA tensors: {n_reads} reads and 9 bad constructions "
+        f"equal to the same windows from numpy")
+
+
+def compare_runs(what, got, want, tol):
+    """Every trajectory of model ``got`` against model ``want``: bit for bit
+    when ``tol`` is None, else within (rtol, atol); NaN where the other has
+    NaN; float64."""
+    import torch
+
+    got, want = trajectories(got), trajectories(want)
+    if set(got) != set(want):
+        raise AssertionError(f"{what}: variables {sorted(set(got) ^ set(want))} in one run only")
+    worst = 0.0
+    for name, a in got.items():
+        b = want[name]
+        if a.dtype != torch.float64 or a.shape != b.shape:
+            raise AssertionError(f"{what} {name}: {a.dtype} {tuple(a.shape)} against "
+                                 f"{b.dtype} {tuple(b.shape)}")
+        ok = ~torch.isnan(b)
+        if not torch.equal(torch.isnan(a), ~ok):
+            raise AssertionError(f"{what} {name}: NaN where the other run has none, or not")
+        diff = (a[ok] - b[ok]).abs()
+        err = float(diff.max()) if diff.numel() else 0.0
+        worst = max(worst, err)
+        bar = 0.0 if tol is None else tol[1] + tol[0] * b[ok].abs()
+        if bool((diff > bar).any()):
+            raise AssertionError(f"{what} {name}: max abs err {err:.3e}")
+    log(f"  {what}: {len(got)} trajectories, max abs err {worst:.3e} "
+        f"({'bit for bit' if tol is None else f'rtol {tol[0]:g}, atol {tol[1]:g}'})")
+
+
+def phase_compat(smi):
+    """The reference-API surface on the card, through its own names and
+    with no ``device=`` given (the card is the default)."""
+    import numpy as np
+    import torch
+
+    from rscm_tpu_torch.compat.calibrate import Optimizer, OptimizationResult
+    from rscm_tpu_torch.compat.core import Model
+    from rscm_tpu_torch.magicc.coupled import build_magicc_model
+
+    t_phase = time.perf_counter()
+    first, last = COMPAT["magicc_years"]
+    years = np.arange(first, last + 1.0)
+    n_steps = len(years) - 1
+
+    cold, reference = compat_magicc(years), build_magicc_model(years=years)
+    nodes = [type(c).__name__ for c in cold.graph.nodes]
+    udeb = next(c for c in cold.graph.nodes if type(c).__name__ == "ClimateUDEB")
+    if nodes != [type(c).__name__ for c in reference.graph.nodes] or udeb.n_layers != 50:
+        raise AssertionError(f"compat MAGICC: nodes {nodes}, {udeb.n_layers} layers")
+    reset_launches()
+    t = time.perf_counter()
+    cold.run()
+    torch.cuda.synchronize()
+    cold_wall = time.perf_counter() - t
+    expect_launches("compat MAGICC, cold run", n_steps)
+    model = compat_magicc(years)
+    reset_launches()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    model.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = read_launches()
+    expect_launches("compat MAGICC, warm run", n_steps)
+    log(f"  compat MAGICC (builders + with_rust_component), 1 member x {n_steps} years, "
+        f"50 layers: warm run {wall:.3f} s (cold {cold_wall:.3f} s), launches {launches} "
+        f"on {smi}")
+    temperature = model.collection.get_data("Surface Temperature").values()
+    if not np.isfinite(np.asarray(temperature)[1:]).all():
+        raise AssertionError("compat MAGICC: non-finite surface temperature")
+    reference.run()
+    compare_runs("compat MAGICC vs build_magicc_model() on the card", model, reference, None)
+    compare_runs("compat MAGICC, warm vs cold run", model, cold, None)
+
+    tol = COMPAT["tol"]
+    two_years = np.arange(2000.0, 2020.0)
+    card, cpu = compat_two_layer(two_years), compat_two_layer(two_years)
+    card.run()
+    cpu.run(device="cpu")
+    rise = card.timeseries().get_timeseries_by_name("Surface Temperature").latest_value()
+    if not rise > 0.5:
+        raise AssertionError(f"compat two-layer: surface temperature {rise} after 20 years")
+    compare_runs("compat two-layer, card vs CPU", card, cpu, tol)
+
+    runs = {}
+    for device in (None, "cpu"):
+        model_t = compat_toml_model()
+        model_t.step(device=device)
+        restored = Model.from_toml(model_t.to_toml())
+        restored.run(device=device)
+        model_t.run(device=device)
+        compare_runs(f"compat TOML round trip on {device or 'the card'}, restored vs original",
+                     restored, model_t, None)
+        runs[device] = restored
+    compare_runs("compat TOML round trip, card vs CPU", runs[None], runs["cpu"], tol)
+
+    compat_windows_on_card()
+    card, cpu = compat_typed_model(DEVICE), compat_typed_model("cpu")
+    card.run()
+    cpu.run(device="cpu")
+    compare_runs("compat typed component (windows from CUDA tensors), card vs CPU",
+                 card, cpu, tol)
+    emissions = np.arange(1.0, 9.0) ** 1.5
+    got = card.timeseries().get_timeseries_by_name("Concentrations|CO2").values()
+    want = emissions[1] + emissions[0:3].mean()  # written at index 3 by step 2
+    if abs(float(got[3]) - want) > 1e-12 * want:
+        raise AssertionError(f"compat typed component at index 3: {float(got[3])} against {want}")
+
+    t = time.perf_counter()
+    estimator = compat_point_estimator(None)
+    result = estimator.optimize(Optimizer.RandomSearch, COMPAT["random_search"])
+    search_wall = time.perf_counter() - t
+    lls = np.asarray(estimator.evaluated_log_likelihoods())
+    if not (isinstance(result, OptimizationResult)
+            and result.n_evaluations == COMPAT["random_search"]
+            and abs(result.best_params[0] - 1.2) <= 0.25 and np.isfinite(lls).all()):
+        raise AssertionError(f"compat RandomSearch: {result}, log likelihoods {lls}")
+    on_cpu = compat_point_estimator("cpu")
+    for theta in estimator.evaluated_params():
+        on_cpu.evaluate(theta)
+    check_close(f"compat RandomSearch, {len(lls)} log likelihoods: card vs CPU",
+                torch.as_tensor(lls), torch.as_tensor(np.asarray(on_cpu.evaluated_log_likelihoods())),
+                *tol)
+    log(f"  compat PointEstimator.optimize(Optimizer.RandomSearch, {COMPAT['random_search']}): "
+        f"best lambda0 {result.best_params[0]:.6f} in {search_wall:.3f} s on {smi}")
+    log(f"  compat phase: {time.perf_counter() - t_phase:.3f} s of wall on {smi}")
+
 
 PHASES = ("kernels", "main", "second", "magicc", "flagship", "scenarios", "fullmagicc", "host",
-          "mesh", "calibrate")
+          "mesh", "calibrate", "compat")
 
 
 def main(selected):
@@ -2774,6 +3124,9 @@ def main(selected):
                 record.update(calib[record["name"]])
         else:
             log(f"  calibration records: {json.dumps(calib)}")
+    if "compat" in run:
+        with Phase("compat"):
+            phase_compat(smi)
 
     import torch
 

@@ -72,15 +72,21 @@ class ModelRunner:
 
 
 class DefaultModelRunner(ModelRunner):
+    """Runs the model ``factory(params)`` builds, one per parameter
+    vector, on the CUDA card unless ``device`` says otherwise (the
+    reference's signature, plus the port's device rule)."""
+
     def __init__(
         self,
         param_names: List[str],
         output_variables: List[str],
         factory: Callable,
+        device=None,
     ):
         self._param_names = list(param_names)
         self.output_variables = list(output_variables)
         self.factory = factory
+        self.device = device
 
     def param_names(self):
         return self._param_names
@@ -92,7 +98,7 @@ class DefaultModelRunner(ModelRunner):
                 f"Expected {len(self._param_names)} parameters, got {len(params)}"
             )
         model = self.factory(params)
-        model.run()
+        model.run(device=self.device)
         if not model.finished():
             raise RuntimeError("Model did not complete all timesteps")
         return self.extract_outputs(model)

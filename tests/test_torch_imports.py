@@ -35,6 +35,7 @@ def port_modules():
 def test_every_module_imports_without_jax():
     modules = port_modules()
     assert "rscm_tpu_torch.magicc.climate.udeb" in modules
+    assert "rscm_tpu_torch.compat._lib.core.state" in modules
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
@@ -205,13 +206,37 @@ def imported_roots(path):
     return roots
 
 
-@pytest.mark.parametrize(
-    "path",
-    sorted(str(p.relative_to(ROOT)) for p in (ROOT / "rscm_tpu_torch").rglob("*.py"))
-    + ["chip_smoke.py"],
-)
+SCANNED = sorted(str(p.relative_to(ROOT)) for p in (ROOT / "rscm_tpu_torch").rglob("*.py")) + [
+    "chip_smoke.py"
+]
+
+
+@pytest.mark.parametrize("path", SCANNED)
 def test_no_forbidden_imports(path):
     assert not imported_roots(ROOT / path) & FORBIDDEN
+
+
+def test_compat_surface_is_scanned_and_registers_no_rscm():
+    """The reference-API surface (``rscm_tpu_torch.compat``) is part of the
+    scan, and importing it leaves ``rscm`` out of ``sys.modules``: the name
+    is taken only by ``install_as_rscm()``."""
+    compat = {str(p.relative_to(ROOT)) for p in (ROOT / "rscm_tpu_torch" / "compat").rglob("*.py")}
+    assert "rscm_tpu_torch/compat/_lib/core/state.py" in compat
+    assert compat <= set(SCANNED)
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "import rscm_tpu_torch.compat\n"
+        "import rscm_tpu_torch.compat._lib.core.state\n"
+        "import rscm_tpu_torch.compat.config.models.magicc.legacy\n"
+        "assert not any(m == 'rscm' or m.startswith('rscm.') for m in sys.modules), 'rscm registered'\n"
+        "assert not any(type(f).__module__.startswith('rscm_tpu_torch') for f in sys.meta_path)\n"
+        "print('ok')\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
 
 
 def run_smoke(cwd, script):
