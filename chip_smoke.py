@@ -22,24 +22,29 @@ Phases, each printed with its elapsed time:
               and raise one layer past its limit; then the four derivative
               kernels (``udeb_year_jvp``, ``udeb_year_vjp``, ``lamcalc_jvp``,
               ``lamcalc_vjp``) at B = 1, 512, 99,997 and 100,000 (n = 50),
-              over the layer counts at B = 512 up to each kernel's limit (one
-              past it raises), with a per-member profile at n = 3 and 50, in
+              at B = 512 at n = 2, 3, 17, 50, 100 and at each kernel's own
+              layer limits (one past a limit raises), with a per-member profile at n = 3 and 50, in
               float64 and float32: each tangent kernel against ``plain_jvp``
               of the plain forward at KERNEL_TOL, each adjoint against its
               explicit twin bit for bit and against autograd of the plain
               forward at AUTOGRAD_TOL, a LAMCALC fallback member's
-              derivatives zero (``python3 chip_smoke.py kernels`` runs this
-              phase alone);
+              derivatives zero, while the references run (below); and,
+              once they are collected, each derivative kernel's device time a
+              launch at B = 1, 8, 512 and 100,000 (``udeb_year``'s in float64
+              and float32) with its bound (its plain version's time at
+              100,000 in float64) (``python3 chip_smoke.py kernels`` runs
+              this phase alone);
 4. main    -- the port's main path: a 100,000-member, 251-year ClimateUDEB
               ensemble driven by the 1pctCO2 forcing ramp, built with
               ``ModelBuilder`` and run by ``EnsembleRunner.run`` in float64;
               the launch counts of both kernels must be 250; 64 members re-run
-              with the plain engine must agree; one member built as the golden
+              with the plain engine must agree (a reference: see below);
+              one member built as the golden
               10_full_default regression case must match the Fortran MAGICC7
               data at that test's tolerance; then a second path, 10,000
               members with 30 layers through ``month_engine="auto"``, whose
               ``udeb_year`` count must be 250 and whose first 16 members must
-              agree with the plain engine;
+              agree with the plain engine (a reference);
 5. timing  -- the main path's wall time and member-years/s, a torch.profiler
               breakdown of one main-path run (device activity: busy time,
               idle share), per kernel its device time per launch (profiler), the time per
@@ -50,9 +55,7 @@ Phases, each printed with its elapsed time:
               multiplications a second: the kernels are built with
               ``-fmad=false``), a division counted at the FMA-pipe
               instructions it takes; ``lamcalc``'s device time on a batch
-              where every 64th member takes the fallback; and each derivative
-              kernel's device time a launch at B = 1, 8, 512 and 100,000 with
-              its bound (its plain version's time at 100,000);
+              where every 64th member takes the fallback;
 6. magicc  -- the ten-component emissions-driven MAGICC graph
               (``build_magicc_model``, 1850-2100, ``history_dtype="bfloat16"``,
               which resolves to the exp-sum ocean-carbon engine) at 100,000
@@ -60,7 +63,8 @@ Phases, each printed with its elapsed time:
               JAX package's bench sweeps it (ECS, kappa,
               ``TerrestrialCarbon.beta``, seed 3): both launch counts must be
               250 and every output finite; 64 members re-run with the plain
-              engines must agree within 1e-10; the run streams (``out_vars``
+              engines must agree within 1e-10 (a reference); the run
+              streams (``out_vars``
               given), and the full loop (``stream=False``) at the same batch
               must give the same values bit for bit, beside its peak memory;
               a ring-engine run (10,000 members, 1850-1950) must agree with
@@ -87,7 +91,8 @@ Phases, each printed with its elapsed time:
               amplification swept (seed 3), streamed: both launch counts must
               be 250, every output finite from index 1, the permafrost pools
               conserve carbon per member, 64 members agree with the plain
-              engines within 1e-10; wall, member-years/s, peak memory; over
+              engines within 1e-10 (a reference); wall, member-years/s,
+              peak memory; over
               the first 51 years 16 streamed members equal to the full loop
               bit for bit, the calls a year and a profile; the permafrost
               and sea-level solves' device time alone;
@@ -133,18 +138,25 @@ Phases, each printed with its elapsed time:
               plain engines within rtol 1e-10); at the 1850-1900 cut, the MAP
               objective's reverse-mode gradient at the truth (50 launches of
               each forward and each adjoint kernel; walls, peak memory) and
-              its checks: against the plain engines within rtol 1e-9, forward
+              its checks: against the plain engines within rtol 1e-9 (and
+              16 walkers' log posterior, one batch through each, within
+              rtol 1e-10), forward
               mode along a seeded direction (50 launches of each tangent
               kernel) at the JAX package's bfloat16 bar, and, with the flux
               history in float64, central differences of 16 perturbed
               walkers in one batched run within 1e-3 of its largest
               component, no derivative of a plain version taken on the card
-              (``plain_jvp.calls`` 0); each kernel's reverse-mode derivative
+              (``plain_jvp.calls`` 0); the same gradient over 1850-2100 (250
+              launches of each forward and each adjoint kernel; the forward's
+              and the backward's walls, peak memory), and with the flux
+              history in float64 against central differences within 1e-3 as
+              at the cut; each kernel's
+              reverse-mode derivative
               at B = 1 timed alone, through its adjoint kernel and through
               its plain version differentiated under autograd; one Adam step
               from the prior midpoint at the cut in reverse and in forward
               mode (the default, ``fwd_threshold=32``); the device ensemble
-              sampler, 1,024 walkers, one iteration under the stretch and
+              sampler, 1,024 walkers, 2 iterations under the stretch and
               the DE move, with a checkpoint round trip; NUTS, 64 chains,
               tree depth 2, one warmup iteration and one transition at
               1850-1860, with ``grad_mode="rev"`` and ``"auto"`` (forward
@@ -164,6 +176,17 @@ Phases, each printed with its elapsed time:
               windows from CUDA tensors against the same windows from numpy
               (the same values, the same exceptions); the phase's wall, the
               MAGICC run's warm wall and its launches.
+
+The references are the plain-engine re-runs that the main, second,
+magicc, fullmagicc and calibrate phases hold the kernels to (each path's
+checked members over its whole axis; the calibration's walkers, its
+1850-1900 gradient and its 1850-2100 central differences): functions
+``ref_*`` that need nothing of the run but its seeds.  Host-bound, one
+after another they would take most of the script's limit, so each runs in
+a worker process of its own on the card, at most REFERENCE_WORKERS at
+once, while the kernels phase checks the kernels (timing nothing); the
+kernels phase waits for them before it times anything, and each phase
+compares its kernels' values with its references at its tolerance.
 
 ``python3 chip_smoke.py PHASE ...`` runs the device and build phases and the
 named later phases only (``kernels`` and ``timing`` go with ``main``;
@@ -203,6 +226,16 @@ N_MEMBERS = 100_000
 RAGGED = 99_997
 #: layer counts udeb_year is held to its plain version at
 LAYER_CHECKS = (2, 3, 17, 50, 100)
+#: the plain-engine re-runs that the paths' checked members are held to
+#: cost ~0.15-0.2 s of host calls a year whatever the batch (most of a
+#: minute each over 251 years): each runs in a worker process of its own
+#: on the card (References), at most this many at once (on the H100, six
+#: such processes each ran 1.5x slower than one alone), and each result is
+#: awaited at most REFERENCE_TIMEOUT s
+REFERENCE_WORKERS = 6
+REFERENCE_TIMEOUT = 600
+#: the main path's members re-run through the plain engines
+MAIN_CHECKED = 64
 #: the second main path: a narrower ocean through month_engine="auto"
 SECOND = {"members": 10_000, "n_layers": 30, "checked": 16}
 #: the MAGICC path: members, members re-run through the plain engines, and
@@ -210,6 +243,8 @@ SECOND = {"members": 10_000, "n_layers": 30, "checked": 16}
 MAGICC = {"members": 100_000, "checked": 64, "ring_members": 10_000, "ring_last_year": 1950.0,
           "profile_years": 51}
 MAGICC_OUT = ["Surface Temperature", "Atmospheric Concentration|CO2"]
+#: the MAGICC path's ocean carbon: bench.py's bfloat16 flux history
+MAGICC_OCEAN = {"history_dtype": "bfloat16"}
 #: ring engine against its exp-sum twin, max |ring - expsum| / max |expsum|
 #: per variable (tests/test_torch_magicc_graph.py::RING_TWIN)
 RING_TWIN = {"float32": 1e-8, "bfloat16": 5e-3}
@@ -298,7 +333,13 @@ TWIN_TOL = EXACT
 #: scalar rows' cotangents (sums of ~1,200 terms a member) by up to 1.9e-5
 #: at B = 100,000, n = 50 and 5.3e-5 at B = 512, n = 348 in absolute terms
 #: (H100), on elements below 1 in size, so KERNEL_TOL's rtol stands and
-#: atol is set just above the larger reading
+#: atol is set just above the larger reading.  (At the float32 layer limits
+#: of 792 / 813 the adjoint first read 1.4e-4 from autograd at 792 (H100):
+#: its one running sum of kappa's cotangent over all the year's rows lay
+#: five times further from the float64 derivative than autograd's (on the
+#: CPU).  Its sums over a month's rows now enter the year's once a month,
+#: as tests/test_torch_adjoint.py holds at 400 layers, and read 1.5e-5 /
+#: 1.1e-5 there.)
 AUTOGRAD_TOL = {"float64": KERNEL_TOL["float64"], "float32": (1e-5, 1e-4)}
 #: the derivative kernels' batches: a MAP gradient (one walker), one walker's
 #: eight forward-mode directions, 64 NUTS chains x 8, and the ensemble's
@@ -336,6 +377,164 @@ def check_close(what, got, want, rtol, atol):
     if bool(bad.any()) or not bool(torch.isfinite(got).all()):
         raise AssertionError(f"{what}: kernel and plain version disagree (max abs err {max_abs:.3e})")
     return max_abs
+
+
+#: each reference's result, by the name of its function, once collected
+_REFERENCE_RESULTS = {}
+
+
+class References:
+    """The plain-engine re-runs that the paths' checks hold the kernels to
+    (the ``ref_*`` functions of this module: each needs nothing of the run
+    but its seeds), each in a worker process of its own on the card, at
+    most REFERENCE_WORKERS at once.  Started after the build, they run while
+    the kernels phase checks the kernels, which times nothing, and
+    :meth:`collect` waits for them before anything is timed; leaving the
+    ``with`` block stops every worker."""
+
+    def __init__(self, jobs):
+        self.jobs, self.pool, self.pending = jobs, None, {}
+
+    def __enter__(self):
+        import multiprocessing
+
+        if self.jobs:
+            workers = min(len(self.jobs), REFERENCE_WORKERS)
+            self.pool = multiprocessing.get_context("spawn").Pool(workers)
+            self.pending = {job.__name__: self.pool.apply_async(run_reference, (job,))
+                            for job in self.jobs}
+            log(f"  {len(self.jobs)} references started in {workers} worker processes")
+        return self
+
+    def collect(self):
+        for name, result in self.pending.items():
+            wall, _REFERENCE_RESULTS[name] = result.get(timeout=REFERENCE_TIMEOUT)
+            log(f"  reference {name}: {wall:.3f} s in its worker")
+        self.pending = {}
+        if self.pool is not None:
+            self.pool.close()
+            self.pool.join()
+            self.pool = None
+
+    def __exit__(self, *exc):
+        if self.pool is not None:
+            self.pool.terminate()
+            self.pool.join()
+        return False
+
+
+def reference(name, device=None):
+    """The collected result of reference ``name`` (on ``device``)."""
+    value = _REFERENCE_RESULTS[name]
+    if device is None:
+        return value
+    if isinstance(value, dict):
+        return {k: v.to(device) for k, v in value.items()}
+    return value.to(device)
+
+
+def run_reference(job):
+    """A worker's reference run: ``job()``, and its wall."""
+    import torch
+
+    t = time.perf_counter()
+    value = job()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t, value
+
+
+def udeb_plain_run(years, erf, params, sweep):
+    """ClimateUDEB as :func:`build_udeb_model` builds it, through the plain
+    versions of both kernels, for the members of ``sweep``: their surface
+    temperature on the host."""
+    from rscm_tpu_torch.parallel import EnsembleRunner
+
+    plain = EnsembleRunner(build_udeb_model(years, erf, {**params, "month_engine": "torch"}))
+    return plain.run(plain.batched_params(sweep),
+                     out_vars=["Surface Temperature"])["Surface Temperature"].cpu()
+
+
+def magicc_plain_run(model_kwargs, sweep, out_vars):
+    """``build_magicc_model(**model_kwargs)`` through the plain versions of
+    both kernels, for the members of ``sweep``: ``out_vars`` on the host."""
+    from rscm_tpu_torch.magicc.coupled import build_magicc_model
+    from rscm_tpu_torch.parallel import EnsembleRunner
+
+    plain = EnsembleRunner(build_magicc_model(**model_kwargs,
+                                              udeb_params={"month_engine": "torch"}))
+    out = plain.run(plain.batched_params(sweep), out_vars=out_vars)
+    return {name: out[name].cpu() for name in out_vars}
+
+
+def ref_main():
+    base, years, erf, sweep, _ = main_inputs()
+    return udeb_plain_run(years, erf, base, {k: v[:MAIN_CHECKED] for k, v in sweep.items()})
+
+
+def ref_second():
+    base, years, erf, sweep = second_inputs()
+    return udeb_plain_run(years, erf, base, {k: v[:SECOND["checked"]] for k, v in sweep.items()})
+
+
+def ref_magicc():
+    sweep = magicc_sweep(MAGICC["members"])
+    return magicc_plain_run({"ocean_params": MAGICC_OCEAN},
+                            {n: v[:MAGICC["checked"]] for n, v in sweep.items()}, MAGICC_OUT)
+
+
+def ref_fullmagicc():
+    options, sweep = fullmagicc_inputs()
+    return magicc_plain_run(options, {n: v[:FULLMAGICC["checked"]] for n, v in sweep.items()},
+                            FULLMAGICC_OUT)
+
+
+def ref_calib_log_prob():
+    """The calibrate phase's 1,024 prior walkers' log posterior through the
+    kernels, as one batch, and for the first CALIB["checked"] with a finite
+    one, through the plain engines as one batch: their indices and the
+    latter."""
+    import torch
+
+    calib = calib_problem()
+    walkers = calib_walkers(calib)
+    with torch.no_grad():
+        lp = calib_log_prob(calib, calib.target)(walkers)
+        idx = torch.nonzero(torch.isfinite(lp))[:CALIB["checked"], 0]
+        plain = calib_log_prob(calib_plain_runner(calib), calib.target)(walkers[idx])
+    return idx.cpu(), plain.cpu()
+
+
+def ref_cut_log_prob():
+    """The same at the 1850-1900 cut, for the first CALIB["checked"] of the
+    first 4 x CALIB["checked"] walkers with a finite log posterior there,
+    those walkers as one batch through each."""
+    import torch
+
+    walkers = calib_walkers(calib_problem())
+    cut = calib_problem(CALIB["cut_last_year"])
+    k = CALIB["checked"]
+    with torch.no_grad():
+        lp = calib_log_prob(cut, cut.target)(walkers[:4 * k])
+        idx = torch.nonzero(torch.isfinite(lp))[:k, 0]
+        plain = calib_log_prob(calib_plain_runner(cut), cut.target)(walkers[idx])
+    return idx.cpu(), plain.cpu()
+
+
+def ref_cut_gradient():
+    return calib_plain_gradient(CALIB["cut_last_year"])
+
+
+def ref_full_central_differences():
+    return central_differences(None)
+
+
+#: each phase's references
+REFERENCE_JOBS = {
+    "main": (ref_main,), "second": (ref_second,), "magicc": (ref_magicc,),
+    "fullmagicc": (ref_fullmagicc,),
+    "calibrate": (ref_calib_log_prob, ref_cut_gradient, ref_full_central_differences,
+                  ref_cut_log_prob),
+}
 
 
 #: one IEEE division and one multiplication per dtype, built with the kernels'
@@ -517,15 +716,30 @@ def phase_build(smi):
     for dn, (total, pipe) in div_instr.items():
         log(f"  an IEEE division in {dn} takes {total} instructions, {pipe} of them on the "
             f"{dn[5:]}-bit FMA pipe (SASS of the division probe)")
+    # the tangent kernel at a gradient's batch and at the ensemble's: its
+    # library keeps c' in shared memory for the first, in device memory
+    # through a ring for the second
     for dtype in (torch.float64, torch.float32):
-        for kernel in ("udeb_year", "udeb_year_jvp", "udeb_year_vjp"):
+        for kernel, b in (("udeb_year", 0), ("udeb_year_jvp", 512), ("udeb_year_jvp", N_MEMBERS),
+                          ("udeb_year_vjp", 0)):
             for n in (50, SECOND["n_layers"]):
-                c = kernel_config(n, dtype, kernel=kernel)
+                c = kernel_config(n, dtype, kernel=kernel, b=b)
                 warps = c["threads"] * c["blocks_per_sm"] // 32
-                log(f"  {kernel} occupancy, {str(dtype)[6:]}, n={n}: {c['threads']} threads a "
-                    f"block, {c['shared_bytes']} shared bytes a block, {c['blocks_per_sm']} "
+                at = (f" at B={b} ({jvp_layout(n, b, dtype)})" if kernel == "udeb_year_jvp"
+                      else "")
+                log(f"  {kernel} occupancy{at}, {str(dtype)[6:]}, n={n}: {c['threads']} threads "
+                    f"a block, {c['shared_bytes']} shared bytes a block, {c['blocks_per_sm']} "
                     f"blocks ({warps} warps) resident per SM [{smi}]")
     return div_instr
+
+
+def jvp_layout(n, b, dtype):
+    """Where the tangent kernel keeps its c' in a launch of ``b`` members, as
+    its library picks it."""
+    from rscm_tpu_torch.ops.udeb_month import kernel_config
+
+    c = kernel_config(n, dtype, kernel="udeb_year_jvp", b=b)
+    return "c' in shared memory" if c["scratch"] == 0 else "c' through the ring"
 
 
 def udeb_inputs(b, dtype, seed, n_layers=50, per_member_profile=False):
@@ -601,7 +815,7 @@ def lamcalc_inputs(b, dtype, seed, fallback_every=64):
     return st, packed
 
 
-def phase_kernels():
+def phase_kernels(smi, div_instr, refs):
     import torch
 
     from rscm_tpu_torch.ops.lamcalc_kernel import lamcalc, lamcalc_plain_with_iterations
@@ -654,7 +868,11 @@ def phase_kernels():
         else:
             raise AssertionError(f"udeb_year took {limit + 1} layers in {dname}")
     errs.update(derivative_kernel_checks())
-    return errs
+    refs.collect()  # nothing is timed while a reference runs
+    derivative_records = derivative_timing(smi, div_instr)
+    for record in derivative_records:
+        record["max_abs_err"] = errs[(record["name"], N_MEMBERS, "float64")]
+    return errs, derivative_records
 
 
 def seeded(shape, dtype, seed):
@@ -683,7 +901,7 @@ def derivative_kernel_checks():
     from rscm_tpu_torch.ops import udeb_month as um
     from rscm_tpu_torch.ops.plain_grad import plain_jvp
 
-    def check_udeb(b, dtype, dname, n_layers, per_member_profile=False, vjp=True):
+    def check_udeb(b, dtype, dname, n_layers, per_member_profile=False, jvp=True, vjp=True):
         rtol, atol = KERNEL_TOL[dname]
         st, scal, ocean, init, vec = udeb_inputs(b, dtype, seed=b + n_layers + 7,
                                                  n_layers=n_layers,
@@ -694,11 +912,15 @@ def derivative_kernel_checks():
             tangents[2] = seeded((2 * n_layers, 1), dtype, 2).expand(2 * n_layers, b)
         what = f"{dname} B={b} n={n_layers}" + (" per-member profile" if per_member_profile
                                                  else "")
-        got = um.udeb_year_jvp(st, primals, tangents)
-        want = plain_jvp(functools.partial(um.udeb_year_plain, st), primals, tangents)
-        torch.cuda.synchronize()
-        err_jvp = max(check_close(f"udeb_year_jvp {what} {name} vs plain_jvp", g, w, rtol, atol)
-                      for name, g, w in zip(("ocean", "vec"), got, want))
+        err_jvp = None
+        if jvp:
+            layout = jvp_layout(n_layers, b, dtype)
+            got = um.udeb_year_jvp(st, primals, tangents)
+            want = plain_jvp(functools.partial(um.udeb_year_plain, st), primals, tangents)
+            torch.cuda.synchronize()
+            err_jvp = max(check_close(f"udeb_year_jvp ({layout}) {what} {name} vs plain_jvp", g,
+                                      w, rtol, atol)
+                          for name, g, w in zip(("ocean", "vec"), got, want))
         if not vjp:
             return err_jvp, None
         g_ocean, g_vec = seeded(ocean.shape, dtype, 11), seeded((8, b), dtype, 12)
@@ -744,13 +966,19 @@ def derivative_kernel_checks():
                 b, dtype, dname, 50)
             errs[("lamcalc_jvp", b, dname)], errs[("lamcalc_vjp", b, dname)] = check_lamcalc(
                 b, dtype, dname, 64 if b >= 512 else 0)
-        limits = {k: um.max_kernel_layers(dtype, k) for k in ("udeb_year_jvp", "udeb_year_vjp")}
+        limits = {k: um.max_kernel_layers(dtype, k)
+                  for k in ("udeb_year_jvp", "udeb_year_vjp", "udeb_year_jvp_shared")}
         log(f"  layer limits in {dname} (the kernels' library): {limits}")
-        for n_layers in (*LAYER_CHECKS, limits["udeb_year_vjp"], limits["udeb_year_jvp"]):
-            check_udeb(512, dtype, dname, n_layers, vjp=n_layers <= limits["udeb_year_vjp"])
+        # each kernel at the common layer counts and at its own limits
+        for n_layers in sorted({*LAYER_CHECKS, *limits.values()}):
+            check_udeb(512, dtype, dname, n_layers,
+                       jvp=n_layers in LAYER_CHECKS or n_layers in (
+                           limits["udeb_year_jvp"], limits["udeb_year_jvp_shared"]),
+                       vjp=n_layers in LAYER_CHECKS or n_layers == limits["udeb_year_vjp"])
         for n_layers in (3, 50):
             check_udeb(RAGGED, dtype, dname, n_layers, per_member_profile=True)
-        for kernel, limit in limits.items():
+        for kernel in ("udeb_year_jvp", "udeb_year_vjp"):
+            limit = limits[kernel]
             st, *args = udeb_inputs(2, dtype, seed=1, n_layers=limit + 1)
             try:
                 if kernel == "udeb_year_jvp":
@@ -822,13 +1050,10 @@ def build_udeb_model(years, erf, params):
     )
 
 
-def phase_main():
+def main_inputs():
+    """The main path's ClimateUDEB parameters, years, forcing and sweep, and
+    the golden case's config."""
     import numpy as np
-    import torch
-
-    from rscm_tpu_torch.ops.lamcalc_kernel import lamcalc
-    from rscm_tpu_torch.ops.udeb_month import udeb_year
-    from rscm_tpu_torch.parallel import EnsembleRunner
 
     _, _, config = read_golden("10_full_default")
     base = {"ecs": config["core_climatesensitivity"], "rf_2xco2": config["core_delq2xco2"]}
@@ -839,7 +1064,18 @@ def phase_main():
         "ClimateUDEB.ecs": rng.uniform(1.8, 5.5, N_MEMBERS),
         "ClimateUDEB.kappa": rng.uniform(0.4, 1.5, N_MEMBERS),
     }
+    return base, years, erf, sweep, config
 
+
+def phase_main():
+    import numpy as np
+    import torch
+
+    from rscm_tpu_torch.ops.lamcalc_kernel import lamcalc
+    from rscm_tpu_torch.ops.udeb_month import udeb_year
+    from rscm_tpu_torch.parallel import EnsembleRunner
+
+    base, years, erf, sweep, config = main_inputs()
     runner = EnsembleRunner(build_udeb_model(years, erf, {**base, "month_engine": "auto"}))
     params = runner.batched_params(sweep)
     udeb_year.launches = 0
@@ -859,17 +1095,13 @@ def phase_main():
     log(f"  {int(years[-1])} global warming: min {float(final.min()):.3f} K, "
         f"median {float(final.median()):.3f} K, max {float(final.max()):.3f} K")
 
-    # 64 members again through the plain versions of both kernels.  Same
-    # arithmetic per member; the 4-box sums may be reduced in another order
-    # at another batch size, so allow the last bits to differ over 250 years.
-    n_check = 64
-    plain = EnsembleRunner(build_udeb_model(years, erf, {**base, "month_engine": "torch"}))
-    plain_out = plain.run(
-        plain.batched_params({k: v[:n_check] for k, v in sweep.items()}),
-        out_vars=["Surface Temperature"],
-    )["Surface Temperature"]
+    # 64 members again through the plain versions of both kernels (a
+    # reference, ref_main).  Same arithmetic per member; the 4-box sums may
+    # be reduced in another order at another batch size, so allow the last
+    # bits to differ over 250 years.
+    n_check = MAIN_CHECKED
     check_close(f"{n_check} members, month_engine='torch' vs the kernels",
-                temps[:n_check], plain_out, 1e-10, 1e-10)
+                temps[:n_check], reference("ref_main", temps.device), 1e-10, 1e-10)
 
     # the golden 10_full_default case, built as tests/regression/
     # test_ocean_udeb.py::test_ocean_10_full_default builds it, on the card
@@ -896,15 +1128,9 @@ def phase_main():
     return runner, params, launches, n_steps
 
 
-def phase_second_path():
-    """A narrower ocean (SECOND["n_layers"] layers) through month_engine="auto":
-    the kernel takes the model's own layer count."""
+def second_inputs():
+    """The second path's ClimateUDEB parameters, years, forcing and sweep."""
     import numpy as np
-    import torch
-
-    from rscm_tpu_torch.ops.lamcalc_kernel import lamcalc
-    from rscm_tpu_torch.ops.udeb_month import udeb_year
-    from rscm_tpu_torch.parallel import EnsembleRunner
 
     _, _, config = read_golden("10_full_default")
     base = {"ecs": config["core_climatesensitivity"], "rf_2xco2": config["core_delq2xco2"],
@@ -915,6 +1141,21 @@ def phase_second_path():
     b = SECOND["members"]
     sweep = {"ClimateUDEB.ecs": rng.uniform(1.8, 5.5, b),
              "ClimateUDEB.kappa": rng.uniform(0.4, 1.5, b)}
+    return base, years, erf, sweep
+
+
+def phase_second_path():
+    """A narrower ocean (SECOND["n_layers"] layers) through month_engine="auto":
+    the kernel takes the model's own layer count."""
+    import numpy as np
+    import torch
+
+    from rscm_tpu_torch.ops.lamcalc_kernel import lamcalc
+    from rscm_tpu_torch.ops.udeb_month import udeb_year
+    from rscm_tpu_torch.parallel import EnsembleRunner
+
+    base, years, erf, sweep = second_inputs()
+    b = SECOND["members"]
     runner = EnsembleRunner(build_udeb_model(years, erf, {**base, "month_engine": "auto"}))
     params = runner.batched_params(sweep)
     udeb_year.launches = 0
@@ -930,13 +1171,8 @@ def phase_second_path():
     if launches != {"udeb_year": n_steps, "lamcalc": n_steps}:
         raise AssertionError(f"second path launches {launches}, expected {n_steps} each")
     k = SECOND["checked"]
-    plain = EnsembleRunner(build_udeb_model(years, erf, {**base, "month_engine": "torch"}))
-    plain_out = plain.run(
-        plain.batched_params({name: v[:k] for name, v in sweep.items()}),
-        out_vars=["Surface Temperature"],
-    )["Surface Temperature"]
     check_close(f"second path: {k} members, month_engine='torch' vs the kernels",
-                temps[:k], plain_out, 1e-10, 1e-10)
+                temps[:k], reference("ref_second", temps.device), 1e-10, 1e-10)
 
 
 def profile_main(runner, params, wall, smi, out_vars=("Surface Temperature",),
@@ -1033,7 +1269,7 @@ def phase_magicc(smi):
     from rscm_tpu_torch.ops.udeb_month import udeb_year
     from rscm_tpu_torch.parallel import EnsembleRunner
 
-    ocean_params = {"history_dtype": "bfloat16"}
+    ocean_params = MAGICC_OCEAN
     model = build_magicc_model(ocean_params=ocean_params)
     n_years = len(model.time_axis)
     n_steps = n_years - 1
@@ -1086,16 +1322,14 @@ def phase_magicc(smi):
         f"{float(co2[:, -1].median()):.2f} ppm")
 
     # the plain versions of both kernels on the first members (the same
-    # per-member arithmetic; reductions may run in another order)
+    # per-member arithmetic; reductions may run in another order): a
+    # reference, ref_magicc
     k = MAGICC["checked"]
-    plain = EnsembleRunner(build_magicc_model(
-        ocean_params=ocean_params, udeb_params={"month_engine": "torch"}))
-    plain_out = plain.run(plain.batched_params({n: v[:k] for n, v in sweep.items()}),
-                          out_vars=MAGICC_OUT)
+    plain_out = reference("ref_magicc", DEVICE)
     for name in MAGICC_OUT:
         check_close(f"MAGICC {k} members {name}, month_engine='torch' vs the kernels",
                     out[name][:k], plain_out[name], 1e-10, 1e-10)
-    del plain, plain_out
+    del plain_out
 
     # the ring engine's (B, N) @ (N, 12) product on the card, against its
     # exp-sum twin, in the run's dtype and with a bfloat16 history
@@ -1433,6 +1667,18 @@ def component_device_ms(solve, reps):
     return busy / 1e3 / reps
 
 
+def fullmagicc_inputs():
+    """The full-options graph's options and sweep."""
+    import numpy as np
+
+    options = {"include_permafrost": True, "include_slr": True, "ocean_params": MAGICC_OCEAN}
+    b = FULLMAGICC["members"]
+    rng = np.random.default_rng(FULLMAGICC["seed"])
+    sweep = {"ClimateUDEB.ecs": rng.uniform(1.8, 5.5, b),
+             "Permafrost.arctic_amplification": rng.uniform(1.5, 2.5, b)}
+    return options, sweep
+
+
 def phase_fullmagicc(smi):
     """The full-options MAGICC graph (ten components + permafrost + sea-level
     rise) at 100,000 members x 251 years, as bench.py's 100k point runs it."""
@@ -1445,8 +1691,7 @@ def phase_fullmagicc(smi):
     from rscm_tpu_torch.ops.udeb_month import udeb_year
     from rscm_tpu_torch.parallel import EnsembleRunner
 
-    options = {"include_permafrost": True, "include_slr": True,
-               "ocean_params": {"history_dtype": "bfloat16"}}
+    options, sweep = fullmagicc_inputs()
     model = build_magicc_model(**options)
     n_years = len(model.time_axis)
     n_steps = n_years - 1
@@ -1459,9 +1704,6 @@ def phase_fullmagicc(smi):
     if engine != "expsum":
         raise AssertionError(f"the full-options path resolved to the {engine!r} engine")
     b = FULLMAGICC["members"]
-    rng = np.random.default_rng(FULLMAGICC["seed"])
-    sweep = {"ClimateUDEB.ecs": rng.uniform(1.8, 5.5, b),
-             "Permafrost.arctic_amplification": rng.uniform(1.5, 2.5, b)}
     runner = EnsembleRunner(model)
     params = runner.batched_params(sweep)
 
@@ -1505,16 +1747,14 @@ def phase_fullmagicc(smi):
         f"{float(slr.max()):.1f} mm; permafrost CO2 median "
         f"{float(out['Emissions|CO2|Permafrost'][:, -1, 0].median()):.4f} GtC/yr")
 
-    # the plain versions of both kernels on the first members
+    # the plain versions of both kernels on the first members: a reference,
+    # ref_fullmagicc
     k = FULLMAGICC["checked"]
-    plain = EnsembleRunner(build_magicc_model(
-        **options, udeb_params={"month_engine": "torch"}))
-    plain_out = plain.run(plain.batched_params({n: v[:k] for n, v in sweep.items()}),
-                          out_vars=FULLMAGICC_OUT)
+    plain_out = reference("ref_fullmagicc", DEVICE)
     for name in FULLMAGICC_OUT:
         check_close(f"full-options {k} members {name}, month_engine='torch' vs the kernels",
                     out[name][:k, 1:], plain_out[name][:, 1:], 1e-10, 1e-10)
-    del plain, plain_out
+    del plain_out
 
     del out, balance, emitted
 
@@ -2205,7 +2445,7 @@ def phase_mesh(smi):
         raise AssertionError(f"split NUTS samples: shape {samples.shape}, or non-finite")
 
 
-def phase_timing(smi, runner, params, launches, n_steps, errs, div_instr):
+def phase_timing(smi, runner, params, launches, n_steps, errs, div_instr, derivative_records):
     import torch
 
     from rscm_tpu_torch.ops.lamcalc_kernel import (
@@ -2279,10 +2519,7 @@ def phase_timing(smi, runner, params, launches, n_steps, errs, div_instr):
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": None,
         })
-    for record in derivative_timing(smi, div_instr):
-        record["max_abs_err"] = errs[(record["name"], N_MEMBERS, "float64")]
-        kernels.append(record)
-    return kernels
+    return kernels + derivative_records
 
 
 def log_bound(name, b, dn, ms, call_ms, plain_ms, other, divs, nbytes, div_instr, smi):
@@ -2309,9 +2546,11 @@ def log_bound(name, b, dn, ms, call_ms, plain_ms, other, divs, nbytes, div_instr
 
 def derivative_timing(smi, div_instr):
     """The four derivative kernels a launch at the gradients' batches
-    (GRAD_BATCHES, float64, n = 50), each beside its bound; at B = 100,000
-    also beside its plain version (``plain_jvp`` of the plain forward, or
-    the adjoint's twin), for the ``kernels`` line."""
+    (GRAD_BATCHES, n = 50), each beside its bound (in float32 at B =
+    100,000 only): ``udeb_year``'s in float64 and float32, ``lamcalc``'s
+    in float64; at B = 100,000 in float64 also beside its plain version
+    (``plain_jvp`` of the plain forward, or the adjoint's twin), for the
+    ``kernels`` line."""
     import functools
 
     import torch
@@ -2320,55 +2559,72 @@ def derivative_timing(smi, div_instr):
     from rscm_tpu_torch.ops import udeb_month as um
     from rscm_tpu_torch.ops.plain_grad import plain_jvp
 
-    dt, dn = torch.float64, "float64"
-    records = []
-    for b in GRAD_BATCHES:
-        reps = 20 if b < N_MEMBERS else 5
-        st, scal, ocean, init, vec = udeb_inputs(b, dt, seed=1)
-        primals = (scal, ocean, init, vec)
-        tangents = (seeded(scal.shape, dt, 1), seeded(ocean.shape, dt, 2), None,
-                    seeded(vec.shape, dt, 3))
-        g_ocean, g_vec = seeded(ocean.shape, dt, 4), seeded((8, b), dt, 5)
-        lst, packed = lamcalc_inputs(b, dt, seed=1, fallback_every=0)
-        tangent, g_out = seeded(packed.shape, dt, 6), seeded((3, b), dt, 7)
-        runs = {
-            "udeb_year_jvp": (
-                lambda: um.udeb_year_jvp(st, primals, tangents),
-                lambda: plain_jvp(functools.partial(um.udeb_year_plain, st), primals,
-                                  tangents),
-                lambda: um.udeb_year_jvp_work(st, *primals),
-                "rscm_tpu_torch/csrc/udeb_year.cu", "rscm_tpu/ops/udeb_month.py:542"),
-            "udeb_year_vjp": (
-                lambda: um.udeb_year_vjp(st, *primals, g_ocean, g_vec),
-                lambda: um.udeb_year_vjp_plain(st, *primals, g_ocean, g_vec),
-                lambda: um.udeb_year_vjp_work(st, *primals, g_ocean, g_vec),
-                "rscm_tpu_torch/csrc/udeb_year.cu", "rscm_tpu/ops/udeb_month.py:542"),
-            "lamcalc_jvp": (
-                lambda: lk.lamcalc_jvp(lst, packed, tangent),
-                lambda: plain_jvp(functools.partial(lk.lamcalc_plain, lst), (packed,),
-                                  (tangent,)),
-                lambda: lk.lamcalc_jvp_work(lst, packed),
-                "rscm_tpu_torch/csrc/lamcalc.cu", "rscm_tpu/ops/lamcalc_kernel.py:317"),
-            "lamcalc_vjp": (
-                lambda: lk.lamcalc_vjp(lst, packed, g_out),
-                lambda: lk.lamcalc_vjp_plain(lst, packed, g_out),
-                lambda: lk.lamcalc_vjp_work(lst, packed, g_out),
-                "rscm_tpu_torch/csrc/lamcalc.cu", "rscm_tpu/ops/lamcalc_kernel.py:317"),
-        }
-        for name, (kernel, plain, work, source, replaces) in runs.items():
-            ms = kernel_device_ms(kernel, f"{name}_kernel", reps)
-            call_ms = cuda_ms(kernel, reps)
-            # the plain versions are host-bound at every batch: timed once
-            plain_ms = cuda_ms(plain, 1) if b == N_MEMBERS else None
-            other, divs, nbytes = work()
-            bound_ms, bound_by = log_bound(name, b, dn, ms, call_ms, plain_ms, other, divs,
-                                           nbytes, div_instr, smi)
-            if b == N_MEMBERS:
-                records.append({
-                    "name": name, "route": "cuda", "source": source, "replaces": replaces,
-                    "launches": 0, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                    "bound_by": bound_by, "library_ms": None,
+    records, readings = [], {}
+    for dt, dn in ((torch.float64, "float64"), (torch.float32, "float32")):
+        for b in GRAD_BATCHES:
+            reps = 20 if b < N_MEMBERS else 5
+            st, scal, ocean, init, vec = udeb_inputs(b, dt, seed=1)
+            primals = (scal, ocean, init, vec)
+            tangents = (seeded(scal.shape, dt, 1), seeded(ocean.shape, dt, 2), None,
+                        seeded(vec.shape, dt, 3))
+            g_ocean, g_vec = seeded(ocean.shape, dt, 4), seeded((8, b), dt, 5)
+            runs = {
+                "udeb_year_jvp": (
+                    lambda: um.udeb_year_jvp(st, primals, tangents),
+                    lambda: plain_jvp(functools.partial(um.udeb_year_plain, st), primals,
+                                      tangents),
+                    lambda: um.udeb_year_jvp_work(st, *primals),
+                    "rscm_tpu_torch/csrc/udeb_year.cu", "rscm_tpu/ops/udeb_month.py:542"),
+                "udeb_year_vjp": (
+                    lambda: um.udeb_year_vjp(st, *primals, g_ocean, g_vec),
+                    lambda: um.udeb_year_vjp_plain(st, *primals, g_ocean, g_vec),
+                    lambda: um.udeb_year_vjp_work(st, *primals, g_ocean, g_vec),
+                    "rscm_tpu_torch/csrc/udeb_year.cu", "rscm_tpu/ops/udeb_month.py:542"),
+            }
+            if dn == "float64":
+                lst, packed = lamcalc_inputs(b, dt, seed=1, fallback_every=0)
+                tangent, g_out = seeded(packed.shape, dt, 6), seeded((3, b), dt, 7)
+                runs.update({
+                    "lamcalc_jvp": (
+                        lambda: lk.lamcalc_jvp(lst, packed, tangent),
+                        lambda: plain_jvp(functools.partial(lk.lamcalc_plain, lst), (packed,),
+                                          (tangent,)),
+                        lambda: lk.lamcalc_jvp_work(lst, packed),
+                        "rscm_tpu_torch/csrc/lamcalc.cu", "rscm_tpu/ops/lamcalc_kernel.py:317"),
+                    "lamcalc_vjp": (
+                        lambda: lk.lamcalc_vjp(lst, packed, g_out),
+                        lambda: lk.lamcalc_vjp_plain(lst, packed, g_out),
+                        lambda: lk.lamcalc_vjp_work(lst, packed, g_out),
+                        "rscm_tpu_torch/csrc/lamcalc.cu", "rscm_tpu/ops/lamcalc_kernel.py:317"),
                 })
+            log(f"  udeb_year_jvp at B={b} {dn} n=50 runs as "
+                f"{jvp_layout(50, b, dt)}")
+            for name, (kernel, plain, work, source, replaces) in runs.items():
+                ms = kernel_device_ms(kernel, f"{name}_kernel", reps)
+                call_ms = cuda_ms(kernel, reps)
+                # the plain versions are host-bound at every batch: timed once
+                full = b == N_MEMBERS and dn == "float64"
+                plain_ms = cuda_ms(plain, 1) if full else None
+                if dn == "float64" or b == N_MEMBERS:
+                    other, divs, nbytes = work()
+                    bound_ms, bound_by = log_bound(name, b, dn, ms, call_ms, plain_ms, other,
+                                                   divs, nbytes, div_instr, smi)
+                else:  # a float32 bound at a gradient's batch is microseconds: not counted
+                    log(f"  {name}: {ms:.4f} ms/launch on the device ({call_ms:.4f} ms a call "
+                        f"back to back, host launch included) at B={b} {dn} on {smi}")
+                readings.setdefault((name, dn), []).append((ms, bound_ms))
+                if full:
+                    records.append({
+                        "name": name, "route": "cuda", "source": source, "replaces": replaces,
+                        "launches": 0, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                        "bound_by": bound_by, "library_ms": None,
+                    })
+    for (name, dn), rows in readings.items():
+        layers = ", n=50" if name.startswith("udeb") else ""
+        log(f"  {name} {dn}{layers}: ms a launch at B = "
+            f"{' / '.join(str(b) for b in GRAD_BATCHES)}: "
+            f"{' / '.join(f'{ms:.4f}' for ms, _ in rows)}; at B={GRAD_BATCHES[-1]} "
+            f"{rows[-1][1] / rows[-1][0]:.1%} of its bound {rows[-1][1]:.4f} ms on {smi}")
     return records
 
 
@@ -2410,6 +2666,130 @@ def backward_ms(grad, smi, what, reps=2):
     return device, wall
 
 
+def calib_problem(last_year=None, **kwargs):
+    """The MAGICC calibration problem (``magicc_calibration``) over its own
+    axis, 1850-2100, or over 1850-``last_year``."""
+    import numpy as np
+
+    from rscm_tpu_torch.magicc.calibration import magicc_calibration
+
+    if last_year is None:
+        return magicc_calibration(**kwargs)
+    return magicc_calibration(years=np.arange(1850.0, last_year + 1.0), **kwargs)
+
+
+def calib_plain_runner(c):
+    """``c`` with its runner through the plain versions of both kernels."""
+    import numpy as np
+
+    from rscm_tpu_torch.calibrate import CompiledModelRunner
+    from rscm_tpu_torch.magicc.calibration import MAGICC_PARAM_SPECS
+    from rscm_tpu_torch.magicc.coupled import build_magicc_model
+
+    years = np.asarray(c.runner.model.time_axis.values())
+    return dataclasses.replace(c, runner=CompiledModelRunner(
+        build_magicc_model(years=years, ocean_params={"history_dtype": "bfloat16"},
+                           udeb_params={"month_engine": "torch"}),
+        param_map={n: MAGICC_PARAM_SPECS[n][0] for n in c.param_names},
+        output_variables=c.runner.output_variables))
+
+
+def calib_objective(c, target):
+    from rscm_tpu_torch.calibrate import EstimateKind, PointEstimator
+
+    return PointEstimator(c.params, c.runner, c.likelihood, target)._traced_objective(
+        EstimateKind.MAP)
+
+
+def calib_log_prob(c, target):
+    from rscm_tpu_torch.calibrate import EnsembleSampler
+
+    return EnsembleSampler(c.params, c.runner, c.likelihood, target)._build_device_log_prob()
+
+
+def calib_walkers(c):
+    """The calibrate phase's CALIB["walkers"] prior walkers (seed 11)."""
+    import numpy as np
+
+    return c.runner.as_theta(c.params.sample_random(CALIB["walkers"],
+                                                    np.random.default_rng(11)))
+
+
+def check_reference_walkers(name, idx):
+    """The walkers reference ``name`` ran through the plain engines are
+    those this run chose."""
+    got = reference(name)[0]
+    if len(got) != len(idx) or not bool((got == idx.cpu()).all()):
+        raise AssertionError(f"{name} ran walkers {got.tolist()}, not {idx.tolist()}")
+
+
+def calib_plain_gradient(last_year):
+    """The MAP objective's reverse-mode gradient at the truth on the
+    calibration problem through the plain engines, on the host."""
+    from rscm_tpu_torch.calibrate.gradients import value_and_grad
+
+    c = calib_problem(last_year)
+    _, grad = value_and_grad(calib_objective(calib_plain_runner(c), c.target),
+                             c.runner.as_theta(c.theta_true[None]), "rev")
+    return grad[0].cpu()
+
+
+def derivative_launches():
+    """Each kernel's wrapper by name, with ``plain_jvp`` (whose calls count
+    derivatives of a plain version)."""
+    from rscm_tpu_torch.ops import lamcalc_kernel as lk
+    from rscm_tpu_torch.ops import udeb_month as um
+
+    return {"udeb_year": um.udeb_year, "lamcalc": lk.lamcalc,
+            "udeb_year_jvp": um.udeb_year_jvp, "lamcalc_jvp": lk.lamcalc_jvp,
+            "udeb_year_vjp": um.udeb_year_vjp, "lamcalc_vjp": lk.lamcalc_vjp}
+
+
+def central_differences(last_year):
+    """On the calibration problem over 1850-``last_year`` with the flux
+    history in float64 (through a bfloat16 history the forward is flat
+    between roundings at a step of 1e-6 of a prior span: on the CPU at
+    1850-1890 such differences miss the gradient by 0.33 of its largest
+    component, by 1.1e-8 in float64): the MAP objective's reverse-mode
+    gradient at the truth through the kernels, each kernel's launches in
+    it, and central differences of the 2d walkers one step of
+    CALIB["fd_rel_step"] of each prior span either side of the truth, in
+    one batched run; on the host."""
+    import numpy as np
+    import torch
+
+    from rscm_tpu_torch.calibrate.gradients import value_and_grad
+    from rscm_tpu_torch.ops.plain_grad import plain_jvp
+
+    fine = calib_problem(last_year, model_kwargs={"ocean_params": {"history_dtype": "float32"}})
+    fine_obj = calib_objective(fine, fine.target)
+    counters = derivative_launches()
+    for fn in counters.values():
+        fn.launches = 0
+    plain_jvp.calls = 0
+    _, grad = value_and_grad(fine_obj, fine.runner.as_theta(fine.theta_true[None]), "rev")
+    launches = {name: fn.launches for name, fn in counters.items()}
+    launches["plain_jvp"] = plain_jvp.calls
+    d = len(fine.param_names)
+    lower, upper = map(np.asarray, fine.params.bounds())
+    h = CALIB["fd_rel_step"] * (upper - lower)
+    steps = np.diag(h)
+    points = fine.runner.as_theta(np.concatenate([fine.theta_true + steps,
+                                                  fine.theta_true - steps]))
+    with torch.no_grad():
+        vals = fine_obj(points)
+    fd = (vals[:d] - vals[d:]) / (2.0 * torch.as_tensor(h, dtype=vals.dtype, device=vals.device))
+    return grad[0].cpu(), fd.cpu(), launches
+
+
+def check_central_differences(what, grad, fd):
+    fd_err = float((fd - grad).abs().max() / grad.abs().max())
+    log(f"  {what}: max |fd - grad| / max |grad| {fd_err:.3e} (bound 1e-3)")
+    if not fd_err < 1e-3:
+        raise AssertionError(f"{what}: the gradient disagrees with central differences "
+                             f"({fd_err:.3e})")
+
+
 def phase_calibrate(smi):
     """The MAGICC calibration at full width through the port's entry points."""
     import functools
@@ -2419,20 +2799,16 @@ def phase_calibrate(smi):
     import torch.autograd.forward_ad as fwAD
 
     from rscm_tpu_torch.calibrate import (
-        AdamOptimizer, Chain, CompiledModelRunner, DEMove, EnsembleSampler, EstimateKind,
-        NUTSSampler, PointEstimator, SamplerState, StretchMove, WalkerInit,
+        AdamOptimizer, Chain, DEMove, EnsembleSampler, NUTSSampler, PointEstimator,
+        SamplerState, StretchMove, WalkerInit,
     )
-    from rscm_tpu_torch.calibrate.gradients import value_and_grad
-    from rscm_tpu_torch.magicc.calibration import MAGICC_PARAM_SPECS, magicc_calibration
-    from rscm_tpu_torch.magicc.coupled import build_magicc_model
+    from rscm_tpu_torch.magicc.calibration import magicc_calibration
     from rscm_tpu_torch.ops import build
     from rscm_tpu_torch.ops import lamcalc_kernel as lk
     from rscm_tpu_torch.ops import udeb_month as um
     from rscm_tpu_torch.ops.plain_grad import plain_jvp
 
-    counters = {"udeb_year": um.udeb_year, "lamcalc": lk.lamcalc,
-                "udeb_year_jvp": um.udeb_year_jvp, "lamcalc_jvp": lk.lamcalc_jvp,
-                "udeb_year_vjp": um.udeb_year_vjp, "lamcalc_vjp": lk.lamcalc_vjp}
+    counters = derivative_launches()
 
     def reset():
         for fn in counters.values():
@@ -2463,27 +2839,11 @@ def phase_calibrate(smi):
     log(f"  calibration problem: {d} parameters, {n_steps + 1} years, "
         f"{calib.target.total_observations()} observations; built (with its truth run) in "
         f"{synced() - t:.2f} s")
-    def plain_runner(c):
-        """``c`` with its runner through the plain versions of both kernels."""
-        years = np.asarray(c.runner.model.time_axis.values())
-        return dataclasses.replace(c, runner=CompiledModelRunner(
-            build_magicc_model(years=years, ocean_params={"history_dtype": "bfloat16"},
-                               udeb_params={"month_engine": "torch"}),
-            param_map={n: MAGICC_PARAM_SPECS[n][0] for n in c.param_names},
-            output_variables=c.runner.output_variables))
-
-    plain = plain_runner(calib)
-
-    def objective(c, target):
-        return PointEstimator(c.params, c.runner, c.likelihood, target)._traced_objective(
-            EstimateKind.MAP)
-
-    def log_prob(c, target):
-        return EnsembleSampler(c.params, c.runner, c.likelihood, target)._build_device_log_prob()
+    objective, log_prob = calib_objective, calib_log_prob
 
     # 1. the log posterior of 1024 walkers as one batched run
     b = CALIB["walkers"]
-    walkers = calib.runner.as_theta(calib.params.sample_random(b, np.random.default_rng(11)))
+    walkers = calib_walkers(calib)
     lp_fn = log_prob(calib, calib.target)
     with torch.no_grad():
         reset()
@@ -2498,21 +2858,24 @@ def phase_calibrate(smi):
             f"{float(lp.median()):.4e} on {smi}")
         if bool(torch.isnan(lp).any()) or n_finite < 0.99 * b or bool((lp == np.inf).any()):
             raise AssertionError(f"log posterior: {b - n_finite} walkers not finite")
-        # the first walkers with a finite posterior, through the plain engines
+        # the first walkers with a finite posterior, through the plain
+        # engines (a reference, ref_calib_log_prob)
         k = CALIB["checked"]
         idx = torch.nonzero(finite)[:k, 0]
+        check_reference_walkers("ref_calib_log_prob", idx)
         check_close(f"log posterior of {k} walkers, month_engine='torch' vs the kernels",
-                    lp[idx], log_prob(plain, calib.target)(walkers[idx]), 1e-10, 0.0)
+                    lp[idx], reference("ref_calib_log_prob")[1].to(lp.device), 1e-10, 0.0)
         for i in torch.nonzero(~finite)[:, 0].tolist():
             log(f"  walker {i} (-inf): {dict(zip(calib.param_names, walkers[i].tolist()))}")
 
     # 2. the MAP objective's gradient at the truth, reverse mode, through the
-    # kernels, and its checks, at the 1850-1900 cut (a 251-year gradient is
-    # ~120-150 s of host-bound backward on the card): against the plain
+    # kernels, and its checks, at the 1850-1900 cut (through the plain
+    # engines a 251-year gradient would take minutes): against the plain
     # engines, forward mode along a seeded unit direction, and central
-    # differences
+    # differences; then the same gradient over 1850-2100, and central
+    # differences there
     cut_years = np.arange(1850.0, CALIB["cut_last_year"] + 1.0)
-    cut = magicc_calibration(years=cut_years)
+    cut = calib_problem(CALIB["cut_last_year"])
     cut_steps = len(cut_years) - 1
     cut_obj = objective(cut, cut.target)
     cut_theta = cut.runner.as_theta(cut.theta_true[None])
@@ -2534,11 +2897,24 @@ def phase_calibrate(smi):
         f"{smi}; objective {float(value[0].detach()):.10e}, gradient {grad.tolist()}")
     if not bool(torch.isfinite(grad).all()) or not bool((grad != 0).all()):
         raise AssertionError(f"gradient {grad.tolist()}")
-    t = synced()
-    _, plain_grad = value_and_grad(objective(plain_runner(cut), cut.target), cut_theta, "rev")
-    log(f"  the same gradient through the plain engines: {synced() - t:.3f} s")
+    # the same gradient through the plain engines (a reference, ref_cut_gradient)
     check_close(f"gradient at {cut_steps + 1} years, month_engine='torch' vs the kernels",
-                cut_grad[0], plain_grad[0], 1e-9, 0.0)
+                cut_grad[0], reference("ref_cut_gradient", cut_grad.device), 1e-9, 0.0)
+    # and, beside the 1,024-walker batch's check, the log posterior at the
+    # cut of the first walkers with a finite one there, as one batch of the
+    # same walkers through the kernels and through the plain engines (at
+    # another batch size a reduction may round otherwise, and LAMCALC's
+    # thresholds turn that into another branch: see the mesh phase)
+    k = CALIB["checked"]
+    with torch.no_grad():
+        idx = torch.nonzero(torch.isfinite(log_prob(cut, cut.target)(walkers[:4 * k])))[:k, 0]
+        if len(idx) < k:
+            raise AssertionError(f"log posterior at the cut: {4 * k - len(idx)} of the first "
+                                 f"{4 * k} walkers not finite")
+        check_reference_walkers("ref_cut_log_prob", idx)
+        check_close(f"log posterior of {k} walkers at {cut_steps + 1} years, one batch each, "
+                    "month_engine='torch' vs the kernels", log_prob(cut, cut.target)(walkers[idx]),
+                    reference("ref_cut_log_prob")[1].to(walkers.device), 1e-10, 0.0)
 
     v = np.random.default_rng(17).normal(size=d)
     v = cut.runner.as_theta(v / np.linalg.norm(v))
@@ -2555,30 +2931,49 @@ def phase_calibrate(smi):
     if not abs(float(jvp - gv)) <= 2e-2 * abs(float(gv)) + 1e-6 * scale:
         raise AssertionError("forward and reverse mode disagree beyond the bfloat16 bar")
 
-    # central differences with the flux history in float64: through a
-    # bfloat16 history the forward is flat between roundings at a step of
-    # 1e-6 of a prior span (on the CPU at 1850-1890 such differences miss the
-    # gradient by 0.33 of its largest component, by 1.1e-8 in float64)
-    fine = magicc_calibration(years=cut_years,
-                              model_kwargs={"ocean_params": {"history_dtype": "float32"}})
-    fine_obj = objective(fine, fine.target)
-    _, fine_grad = value_and_grad(fine_obj, cut_theta, "rev")
-    fine_grad = fine_grad[0]
-    lower, upper = map(np.asarray, fine.params.bounds())
-    h = CALIB["fd_rel_step"] * (upper - lower)
-    steps = np.diag(h)
-    points = fine.runner.as_theta(np.concatenate([fine.theta_true + steps,
-                                                  fine.theta_true - steps]))
-    with torch.no_grad():
-        vals = fine_obj(points)
-    fd = (vals[:d] - vals[d:]) / (2.0 * torch.as_tensor(h, dtype=vals.dtype, device=vals.device))
-    fd_err = float((fd - fine_grad).abs().max() / fine_grad.abs().max())
-    log(f"  central differences, {cut_steps + 1} years, flux history in float64 ({2 * d} "
-        f"walkers in one batched run, step {CALIB['fd_rel_step']:g} of each prior span): "
-        f"max |fd - grad| / max |grad| {fd_err:.3e} (bound 1e-3)")
-    if not fd_err < 1e-3:
-        raise AssertionError(f"gradient disagrees with central differences ({fd_err:.3e})")
-    del fine, fine_obj
+    # central differences with the flux history in float64
+    fine_grad, fd, _ = central_differences(CALIB["cut_last_year"])
+    check_central_differences(
+        f"central differences, {cut_steps + 1} years, flux history in float64 ({2 * d} "
+        f"walkers in one batched run, step {CALIB['fd_rel_step']:g} of each prior span)",
+        fine_grad, fd)
+    lower, upper = map(np.asarray, cut.params.bounds())
+
+    # the same gradient over the whole 1850-2100 axis (the calibration
+    # problem's own), reverse mode: the forward with its tape and the
+    # backward, 250 launches of each forward kernel and each adjoint
+    full_obj = objective(calib, calib.target)
+    full_theta = calib.runner.as_theta(calib.theta_true[None])
+    torch.cuda.reset_peak_memory_stats()
+    reset()
+    with torch.enable_grad():
+        x = full_theta.clone().requires_grad_(True)
+        t = synced()
+        value = full_obj(x)
+        t_full_fwd = synced() - t
+        (full_grad,) = torch.autograd.grad(value.sum(), x)
+        t_full_bwd = synced() - t - t_full_fwd
+    peak = torch.cuda.max_memory_allocated()
+    expect(f"gradient at the truth, {n_steps + 1} years, reverse mode", n_steps, vjp=n_steps)
+    log(f"  gradient at the truth, reverse mode, {n_steps + 1} years: forward with the tape "
+        f"{t_full_fwd:.3f} s, backward {t_full_bwd:.3f} s, peak device memory "
+        f"{peak / 2**30:.3f} GiB on {smi}; objective {float(value[0].detach()):.10e}, "
+        f"gradient {full_grad[0].tolist()}")
+    if not bool(torch.isfinite(full_grad).all()) or not bool((full_grad != 0).all()):
+        raise AssertionError(f"gradient over {n_steps + 1} years: {full_grad[0].tolist()}")
+    del full_obj
+    # the 250 adjoints chained: the same gradient with the flux history in
+    # float64 against central differences (a reference,
+    # ref_full_central_differences, which runs the kernels in its worker)
+    what = (f"central differences, {n_steps + 1} years, flux history in float64 ({2 * d} "
+            f"walkers in one batched run, step {CALIB['fd_rel_step']:g} of each prior span)")
+    fine_grad, fd, launches = reference("ref_full_central_differences")
+    log(f"  {what}: the gradient's launches {launches}")
+    want = {**{name: n_steps for name in counters}, "udeb_year_jvp": 0, "lamcalc_jvp": 0,
+            "plain_jvp": 0}
+    if launches != want:
+        raise AssertionError(f"{what}: launches {launches}, expected {want}")
+    check_central_differences(what, fine_grad, fd)
 
     # each kernel's reverse-mode derivative alone at the gradient's batch of one
     # walker: the adjoint kernel (the Function's backward), and the plain
@@ -3083,50 +3478,56 @@ def main(selected):
         smi = phase_device()
     with Phase("build"):
         div_instr = phase_build(smi)
-    if "main" in run or "kernels" in run:
-        with Phase("kernels"):
-            errs = phase_kernels()
-    if "main" in run:
-        with Phase("main"):
-            runner, params, launches, n_steps = phase_main()
-    if "second" in run:
-        with Phase("second"):
-            phase_second_path()
-    if "main" in run:
-        with Phase("timing"):
-            kernels = phase_timing(smi, runner, params, launches, n_steps, errs, div_instr)
-        del runner, params
-    if "magicc" in run:
-        with Phase("magicc"):
-            phase_magicc(smi)
-    if "flagship" in run:
-        with Phase("flagship"):
-            phase_flagship(smi)
-    if "scenarios" in run:
-        with Phase("scenarios"):
-            phase_scenarios(smi)
-    if "fullmagicc" in run:
-        with Phase("fullmagicc"):
-            phase_fullmagicc(smi)
-    if "host" in run:
-        with Phase("host"):
-            _, _, config = read_golden("10_full_default")
-            phase_host_executor(smi, {"ecs": config["core_climatesensitivity"],
-                                      "rf_2xco2": config["core_delq2xco2"]})
-    if "mesh" in run:
-        with Phase("mesh"):
-            phase_mesh(smi)
-    if "calibrate" in run:
-        with Phase("calibrate"):
-            calib = phase_calibrate(smi)
-        if kernels is not None:
-            for record in kernels:
-                record.update(calib[record["name"]])
-        else:
-            log(f"  calibration records: {json.dumps(calib)}")
-    if "compat" in run:
-        with Phase("compat"):
-            phase_compat(smi)
+    jobs = [job for phase in PHASES if phase in run for job in REFERENCE_JOBS.get(phase, ())]
+    with References(jobs) as refs:
+        if "main" in run or "kernels" in run:
+            with Phase("kernels"):
+                errs, derivative_records = phase_kernels(smi, div_instr, refs)
+        elif refs.pending:
+            with Phase("references"):
+                refs.collect()
+        if "main" in run:
+            with Phase("main"):
+                runner, params, launches, n_steps = phase_main()
+        if "second" in run:
+            with Phase("second"):
+                phase_second_path()
+        if "main" in run:
+            with Phase("timing"):
+                kernels = phase_timing(smi, runner, params, launches, n_steps, errs, div_instr,
+                                       derivative_records)
+            del runner, params
+        if "magicc" in run:
+            with Phase("magicc"):
+                phase_magicc(smi)
+        if "flagship" in run:
+            with Phase("flagship"):
+                phase_flagship(smi)
+        if "scenarios" in run:
+            with Phase("scenarios"):
+                phase_scenarios(smi)
+        if "fullmagicc" in run:
+            with Phase("fullmagicc"):
+                phase_fullmagicc(smi)
+        if "host" in run:
+            with Phase("host"):
+                _, _, config = read_golden("10_full_default")
+                phase_host_executor(smi, {"ecs": config["core_climatesensitivity"],
+                                          "rf_2xco2": config["core_delq2xco2"]})
+        if "mesh" in run:
+            with Phase("mesh"):
+                phase_mesh(smi)
+        if "calibrate" in run:
+            with Phase("calibrate"):
+                calib = phase_calibrate(smi)
+            if kernels is not None:
+                for record in kernels:
+                    record.update(calib[record["name"]])
+            else:
+                log(f"  calibration records: {json.dumps(calib)}")
+        if "compat" in run:
+            with Phase("compat"):
+                phase_compat(smi)
 
     import torch
 

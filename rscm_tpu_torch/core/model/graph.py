@@ -9,7 +9,7 @@ queue discipline and that neighbor order — :meth:`ComponentGraph.bfs_order`
 does exactly that.
 
 Like the reference's Rust core, the traversal engine itself is native:
-``native/graph_engine.cpp`` (bound via :mod:`rscm_tpu_torch.native`)
+``native/src/graph_engine.cpp`` (bound via :mod:`rscm_tpu_torch.native`)
 implements the same BFS / Kahn / cycle-detection contracts and is used when
 its shared library builds and loads; the pure-Python implementations below
 remain the fallback and the oracle the tests hold it against

@@ -18,18 +18,21 @@
 //   tangents follow each operation's derivative rule as PyTorch's forward
 //   mode states it, and every predicate (where, minimum, maximum) decides on
 //   the value.  Its plain version is plain_jvp of udeb_year_plain.
-// - The adjoint kernel first replays the year with the forward's own month
-//   code, writing each month's starting state to a scratch buffer (a
-//   checkpoint), then for month 12 down to 1 rebuilds that month's Thomas
-//   coefficients in shared memory from its checkpoint and runs the month's
-//   adjoint (month_vjp) in reverse order: the coupling step, the clamp and the
-//   transposed tridiagonal solve, the assembly, the ground heat.  Its plain
-//   version, udeb_year_vjp_plain, performs the same operations in the same
-//   order.  At a tie, minimum and maximum send half the cotangent to each
-//   operand, as PyTorch's and JAX's rules do.
+// - The adjoint kernel runs the year's forward once, with the forward's own
+//   month code, writing a tape to device memory as it goes: each month's
+//   starting scalars and, for every layer, the Thomas factors c' and d' and
+//   the unclamped solution.  Then for month 12 down to 1 it runs the month's
+//   adjoint (month_vjp) in reverse order, reading the tape back: the
+//   coupling step, the clamp and the transposed tridiagonal solve, the
+//   assembly, the ground heat.  No month is replayed.  Its plain version,
+//   udeb_year_vjp_plain, performs the same operations in the same order.
+//   At a tie, minimum and maximum send half the cotangent to each operand,
+//   as PyTorch's and JAX's rules do.
 //
 // Layout: member-minor.  Row r of member m of a (rows, B) input is at
-// r * B + m, so the threads of a warp read neighbouring addresses.
+// r * B + m, so the threads of a warp read neighbouring addresses; the
+// device-memory scratch of the derivative kernels is thread-minor (row r of
+// thread 2m + h at r * 2B + 2m + h) for the same reason.
 // init_prof (and its tangent) is addressed through explicit strides so a
 // broadcast view (stride 0 over members) needs no copy.
 //
@@ -37,11 +40,11 @@
 // x 12 months x n layers of a serial Thomas step, each ~40 additions and
 // multiplications and 2 IEEE divisions, against ~(4n + 40) values in and
 // out; the tangent kernel does ~2.5x the forward's arithmetic, the adjoint
-// ~3.5x (the replay, the rebuild and the adjoint itself) where the function
-// needs ~2.4x (one forward and the adjoint).  At the batches of a
-// gradient (one member for a MAP gradient, eight for one walker's forward
-// mode, 512 for 64 NUTS chains x 8) a launch is one serial chain of
-// dependent operations per member: latency.  Design:
+// ~2.4x (one forward and the adjoint), which is what the function needs;
+// the adjoint's tape, ~3n values a column-month, is written and read back
+// once.  At the batches of a gradient (one member for a MAP gradient, eight
+// for one walker's forward mode, 512 for 64 NUTS chains x 8) a launch is
+// one serial chain of dependent operations per member: latency.  Design:
 // - Threads 2k and 2k+1 of a block hold the northern and southern column of
 //   one member.  The columns are independent within a month; they meet only
 //   in the land / exchange / upwelling step, where the pair swaps its air
@@ -49,11 +52,22 @@
 //   __shfl_xor_sync and both form the global mean in the plain version's
 //   order.
 // - Each thread's column (overwritten by d' in the forward sweep and by the
-//   solution in the back sweep) and its Thomas coefficients c' live in
-//   dynamic shared memory, laid out [layer][thread] so that a warp's 32
-//   values fall on consecutive banks.  The adjoint keeps the month's d', c',
-//   unclamped solution, cotangents and the initial profile's cotangents
-//   there too; the scalar rows' cotangents accumulate in registers.
+//   solution in the back sweep) lives in dynamic shared memory, laid out
+//   [layer][thread] so that a warp's 32 values fall on consecutive banks;
+//   the forward keeps its Thomas coefficients c' there too.  The tangent
+//   kernel keeps its dual c' in device memory instead (unless one wave of
+//   blocks holds the batch: then in shared memory, where the sweeps wait on
+//   no load; the launch picks, jvp_kind), and the adjoint its tape, both in
+//   a scratch buffer the caller allocates at the length the library states
+//   (udeb_year_config_*): both read rows back through a ring
+//   of RING slots a thread in shared memory, filled with cp.async RING rows
+//   before a row is read, so the reads' latency overlaps the sweeps'
+//   arithmetic.  The adjoint keeps
+//   only the column's and the initial profile's cotangents in shared memory
+//   (its forward pass uses the same rows for its column and c'); the scalar
+//   rows' cotangents accumulate in registers.  Per-thread shared memory is
+//   then about the forward's, and so is the occupancy: 8 warps per SM in
+//   float64 at 50 layers.
 // - The per-layer geometry (a device buffer) and a broadcast initial profile
 //   are staged into shared memory once per block.
 // - In float64 at 50 layers shared memory holds 8 warps per SM, too few to
@@ -64,6 +78,7 @@
 //   its shared memory (smem_bytes, per kernel), which bounds n; the host
 //   picks the block size with the most resident threads per SM.
 
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 #include <string.h>
@@ -96,12 +111,19 @@ enum ScalarRow {
 };
 constexpr int S_SHARED = S_W_THRESH_NH;  // the rows both hemispheres read
 
-// The three kernels of this file.
-enum Kind { K_FORWARD = 0, K_JVP = 1, K_VJP = 2 };
+// The kernels of this file: the forward, the tangent kernel in its two
+// layouts (c' in device memory through a ring, or in shared memory), and
+// the adjoint.
+enum Kind { K_FORWARD = 0, K_JVP = 1, K_VJP = 2, K_JVP_SHARED = 3 };
 
 constexpr int MAX_THREADS = 256;
 constexpr int MIN_THREADS = 32;
 constexpr size_t MAX_BLOCK_SMEM = 232448;  // 227 KB: the most one block may use
+// Slots a thread of the tangent and adjoint kernels keeps in shared memory
+// for each row array it reads back from device memory: a row is fetched
+// RING rows before it is read.  A power of two; 4 keeps the adjoint's
+// float64 block of 8 warps at 50 layers within MAX_BLOCK_SMEM.
+constexpr int RING = 4;
 
 // ---------------------------------------------------------------------------
 // dual numbers for the tangent kernel
@@ -306,17 +328,104 @@ struct ProfDual {
   __device__ __forceinline__ Dual<T> operator()(int i) const { return {value(i), tangent(i)}; }
 };
 
+// ---------------------------------------------------------------------------
+// where a month's Thomas coefficients c' go, and the adjoint's tape
+// ---------------------------------------------------------------------------
+
+// c' in shared memory, [layer][thread] (the forward, and the adjoint's
+// forward pass).
+template <typename V>
+struct SmemRows {
+  V* p;  // this thread's row 0
+  int nt;
+  __device__ __forceinline__ void put(int i, V v) { p[i * nt] = v; }
+  __device__ __forceinline__ V get(int i) const { return p[i * nt]; }
+  __device__ __forceinline__ void done(int) {}
+};
+
+// c' in device memory, read back by the back sweep (rows n-2 down to 0)
+// through a ring of RING slots in shared memory.  The forward sweep writes
+// each row to the ring too, so the last RING rows are there when the back
+// sweep starts and never go to device memory; when the back sweep is done
+// with row i (done), row i - RING is fetched into its slot with cp.async,
+// one commit group per row, and get waits for the group RING - 1 rows
+// back.  Every fetched row is read, so no copy is in flight when a sweep
+// ends.
+template <typename V>
+struct RingRows {
+  V* g;        // this thread's row 0 in device memory
+  int64_t gs;  // elements between rows there
+  V* ring;     // this thread's slot 0
+  int nt, n;
+  __device__ __forceinline__ V* slot(int i) const { return ring + (i & (RING - 1)) * nt; }
+  __device__ __forceinline__ void put(int i, V v) {
+    if (i < n - 1 - RING) g[i * gs] = v;
+    *slot(i) = v;
+  }
+  __device__ __forceinline__ V get(int i) const {
+    __pipeline_wait_prior(RING - 1);
+    return *slot(i);
+  }
+  __device__ __forceinline__ void done(int i) {
+    if (i >= RING) __pipeline_memcpy_async(slot(i), g + (i - RING) * gs, sizeof(V));
+    __pipeline_commit();
+  }
+};
+
+// The adjoint's tape of one month of this thread's column in device memory
+// (rows `stride` elements apart): row i holds the unclamped solution x_i
+// and the Thomas factors c'_{i-1} and d'_{i-1} (row 0 holds x_0 alone), so
+// that each sweep of the adjoint reads the rows of one layer together.
+template <typename T>
+struct Tape {
+  T *x, *cp, *dp;
+  int64_t stride;
+  __device__ __forceinline__ void factors(int i, T c, T d) const {  // c'_i, d'_i
+    cp[(i + 1) * stride] = c;
+    dp[(i + 1) * stride] = d;
+  }
+  __device__ __forceinline__ void solution(int i, T v) const { x[i * stride] = v; }
+};
+
+// The adjoint's reads of a month's tape: row r's planes (x, c', d' or the
+// first two) fetched together into a ring of RING slots a plane in shared
+// memory with cp.async, as one commit group; a sweep fetches RING rows
+// ahead of the row it reads (each row's group waited for RING - 1 groups
+// later), and reads every row it fetches.
+template <typename T>
+struct TapeRing {
+  Tape<T> tape;
+  T* ring;  // this thread's slot 0 of plane 0; plane k at ring + k * RING * nt
+  int nt;
+  __device__ __forceinline__ T* slot(int plane, int r) const {
+    return ring + (plane * RING + (r & (RING - 1))) * nt;
+  }
+  __device__ __forceinline__ void fetch(int r, int planes, bool valid) {
+    if (valid) {
+      const int64_t o = r * tape.stride;
+      __pipeline_memcpy_async(slot(0, r), tape.x + o, sizeof(T));
+      __pipeline_memcpy_async(slot(1, r), tape.cp + o, sizeof(T));
+      if (planes == 3) __pipeline_memcpy_async(slot(2, r), tape.dp + o, sizeof(T));
+    }
+    __pipeline_commit();
+  }
+  __device__ __forceinline__ void wait() const { __pipeline_wait_prior(RING - 1); }
+  __device__ __forceinline__ T x(int r) const { return *slot(0, r); }
+  __device__ __forceinline__ T cp(int r) const { return *slot(1, r); }  // c'_{r-1}
+  __device__ __forceinline__ T dp(int r) const { return *slot(2, r); }  // d'_{r-1}
+};
+
 // One monthly sub-step of this thread's hemisphere, on values (V = T) or dual
 // numbers (V = Dual<T>): the forward kernel's body.  col holds the column and
-// cpr receives c'.  With TAPE (the adjoint's rebuild of a month) the back
-// substitution leaves d' in col and writes the unclamped solution to xs, and
-// the coupling step is left to the adjoint.
-template <typename T, typename V, bool TAPE, typename P>
+// cpr (SmemRows or RingRows) receives c'.  With TAPE (the adjoint's forward
+// pass) the forward sweep also writes c' and d' to the tape, and the back
+// substitution the unclamped solution.
+template <typename T, typename V, bool TAPE, typename P, typename C>
 __device__ __forceinline__ void month(const Consts<T>& g, const Hemi<T>& c, const Geo<T>& geo,
                                       const Lane& ln, const V (&sc)[S_ROWS], const Air<V>& air,
                                       V aeff, V w_thresh, const P& prof, T frac, int land_heat,
-                                      V* col, V* cpr, T* xs, V& land, V& ground, V& hemi,
-                                      V& upw) {
+                                      V* col, C& cpr, const Tape<T>& tape, V& land, V& ground,
+                                      V& hemi, V& upw) {
   const int n = ln.n, nt = ln.nt, tid = ln.tid, h = ln.h;
   const T dt_sub = c.dt_sub;
   const T* af_top = geo.af_top;
@@ -370,8 +479,9 @@ __device__ __forceinline__ void month(const Consts<T>& g, const Hemi<T>& c, cons
   // latency with them.
   V cp_prev = c0 / b0;
   V dp_prev = d0 / b0;
-  cpr[tid] = cp_prev;
+  cpr.put(0, cp_prev);
   col[tid] = dp_prev;
+  if constexpr (TAPE) tape.factors(0, cp_prev, dp_prev);
   V kappa_prev = kappa(0);
   V prof_i = prof(1);
   V a_nx, b_nx, c_nx, d_nx;  // the next row's coefficients
@@ -402,8 +512,9 @@ __device__ __forceinline__ void month(const Consts<T>& g, const Hemi<T>& c, cons
   auto eliminate = [&](int i, V a_i, V c_i, V d_i, V denom) {
     cp_prev = c_i / denom;
     dp_prev = (d_i - a_i * dp_prev) / denom;
-    cpr[i * nt + tid] = cp_prev;
+    cpr.put(i, cp_prev);
     col[i * nt + tid] = dp_prev;
+    if constexpr (TAPE) tape.factors(i, cp_prev, dp_prev);
   };
   if (n > 2) {
     interior_row(1);
@@ -422,26 +533,19 @@ __device__ __forceinline__ void month(const Consts<T>& g, const Hemi<T>& c, cons
   }
   V x = (d_nx - a_nx * dp_prev) / (b_nx - a_nx * cp_prev);
 
-  if constexpr (TAPE) {
-    // the adjoint's rebuild: keep d' in col, the unclamped solution in xs
-    xs[(n - 1) * nt + tid] = x;
-    for (int i = n - 2; i >= 0; --i) {
-      x = col[i * nt + tid] - cpr[i * nt + tid] * x;
-      xs[i * nt + tid] = x;
-    }
-    return;
-  }
-
   // back substitution on the unclamped solution, then the clamp; each
   // row's two values are loaded one row ahead
+  if constexpr (TAPE) tape.solution(n - 1, x);
   col[(n - 1) * nt + tid] = tmin(x, max_temp);
-  V col_i = col[(n - 2) * nt + tid], cpr_i = cpr[(n - 2) * nt + tid];
+  V col_i = col[(n - 2) * nt + tid], cpr_i = cpr.get(n - 2);
   for (int i = n - 2; i >= 0; --i) {
     const V d_prime = col_i, c_prime = cpr_i;
+    cpr.done(i);
     const int j = i > 0 ? i - 1 : 0;
     col_i = col[j * nt + tid];
-    cpr_i = cpr[j * nt + tid];
+    cpr_i = cpr.get(j);
     x = d_prime - c_prime * x;
+    if constexpr (TAPE) tape.solution(i, x);
     col[i * nt + tid] = tmin(x, max_temp);
   }
   const V sst = tmin(x, max_temp);
@@ -477,19 +581,20 @@ struct ScalBar {
 
 // The adjoint of one month of this thread's hemisphere (the twin of
 // _month_vjp_plain in ops/udeb_month.py, the same operations in the same
-// order).  The month was rebuilt by month<TAPE>: col holds d', cpr c', xs the
-// unclamped solution.  bar holds the cotangents of the month's ocean column
-// and receives those of its starting column; land_b .. upw_b likewise for
-// the vector state; pb accumulates the initial profile's cotangents.
+// order).  tr reads the month's tape (the unclamped solution, c' and d', as
+// the forward pass wrote them); ocean0 .. w are the month's starting values
+// and ground1 its ground temperature after the damping.  bar holds the
+// cotangents of the month's ocean column and receives those of its starting
+// column; land_b .. upw_b likewise for the vector state; pb accumulates the
+// initial profile's cotangents.
 template <typename T>
 __device__ __forceinline__ void month_vjp(const Consts<T>& g, const Hemi<T>& c, const Geo<T>& geo,
                                           const Lane& ln, const T (&sc)[S_ROWS],
                                           const Air<T>& air, T aeff, T w_thresh,
                                           const Prof<T>& prof, T frac, int land_heat, T ocean0,
                                           T ocean_last, T land, T ground, T ground1, T w,
-                                          const T* dp, const T* cp, const T* xs, T* bar, T* pb,
-                                          T& land_b, T& ground_b, T& hemi_b, T& upw_b,
-                                          ScalBar<T>& sb) {
+                                          TapeRing<T>& tr, T* bar, T* pb, T& land_b,
+                                          T& ground_b, T& hemi_b, T& upw_b, ScalBar<T>& sb) {
   const int n = ln.n, nt = ln.nt, tid = ln.tid, h = ln.h;
   const T dt = c.dt_sub;
   const T* at = geo.af_top;
@@ -501,9 +606,13 @@ __device__ __forceinline__ void month_vjp(const Consts<T>& g, const Hemi<T>& c, 
   T* s = sb.s;
   auto row = [&](int i) { return i * nt + tid; };
 
+  // the top-down sweep's first rows, fetched while the coupling step runs
+  for (int r = 0; r < RING; ++r) tr.fetch(r, 2, r < n);
+  tr.wait();
+
   // -- the coupling step's values, as the forward formed them ---------------
   const T erf = sc[S_ERF_START] + frac * (sc[S_ERF_END] - sc[S_ERF_START]);
-  const T sst = tmin(xs[row(0)], mt);
+  const T sst = tmin(tr.x(0), mt);
   const T t_own = sst_to_air<T>(air, sst);
   const T t_other = shfl(ln.pair, t_own);
   const T ka = sc[S_K_LO] * sc[S_AMPLIFY];
@@ -588,16 +697,23 @@ __device__ __forceinline__ void month_vjp(const Consts<T>& g, const Hemi<T>& c, 
   }
 
   // -- the clamp, then the back substitution's adjoint (top down) -----------
-  T xb = T(0);
+  // (a sum over the rows is taken within the month, then added to the
+  // year's: one running sum over every row of the year rounds far more in
+  // float32)
+  T xb = T(0), mt_sum = T(0);
   for (int i = 0; i < n; ++i) {
+    tr.wait();
+    const T x_i = tr.x(i), cp_im1 = tr.cp(i);
+    tr.fetch(i + RING, 2, i + RING < n);
     T gi = bar[row(i)];
     if (i == 0) gi = gi + sst_bar;
     T g_x, g_m;
-    min_bar(xs[row(i)], mt, gi, g_x, g_m);
-    s[S_MAX_TEMP] += g_m;
-    xb = i == 0 ? g_x : g_x - xb * cp[row(i - 1)];
+    min_bar(x_i, mt, gi, g_x, g_m);
+    mt_sum = mt_sum + g_m;
+    xb = i == 0 ? g_x : g_x - xb * cp_im1;
     bar[row(i)] = xb;
   }
+  s[S_MAX_TEMP] += mt_sum;
 
   // -- the forward sweep's and the assembly's adjoint, last row first -------
   const T dkdt_term = sc[S_KAPPA_DKDT] * (ocean0 - ocean_last);
@@ -609,29 +725,35 @@ __device__ __forceinline__ void month_vjp(const Consts<T>& g, const Hemi<T>& c, 
   const T delta_w = w - w_initial;
   const T k_dw = g.s[G_K_DT_DZ] * delta_w;
   T dkdt_bar = T(0), tul_bar = T(0), pto_bar = T(0), k_dw_bar = T(0), k_dw_tp_bar = T(0);
+  T kappa_sum = T(0), kmin_sum = T(0);
   auto kappa_bar_add = [&](int i, T kb) {
     T g_k, g_min;
     max_bar(kappa_pre(i), sc[S_KAPPA_MIN], kb, g_k, g_min);
-    s[S_KAPPA_MIN] += g_min;
+    kmin_sum = kmin_sum + g_min;
     const T kp_bar = g_k * g.s[G_DSCALE];
-    s[S_KAPPA] += kp_bar;
+    kappa_sum = kappa_sum + kp_bar;
     dkdt_bar = dkdt_bar + kp_bar * geo.omr[i];
   };
 
   // the last row; carried to the rows above: the pending cotangents of
-  // d'_{i-1}, c'_{i-1} and kappa_{i-1}
+  // d'_{i-1}, c'_{i-1} and kappa_{i-1}, and the tape's x_i, c'_{i-1},
+  // d'_{i-1} (tape row i: each row above reads one new tape row)
+  for (int r = 0; r < RING; ++r) tr.fetch(n - 1 - r, 3, n - 1 - r >= 1);
   int i = n - 1;
   T pend_dp, pend_cp, kappa_carry;
+  tr.wait();
+  T x_c = tr.x(i), cp_c = tr.cp(i), dp_c = tr.dp(i);
+  tr.fetch(i - RING, 3, i - RING >= 1);
   {
     const T tdl = kappa(n - 2) * g.s[G_INV_DZ2] * dt;
     const T a_l = -tdl * at[i];
     const T b_l = T(1.0) + (tdl + tul) * at[i];
-    const T den = b_l - a_l * cp[row(i - 1)];
+    const T den = b_l - a_l * cp_c;
     const T nb = bar[row(i)] / den;
-    const T db = -(nb * xs[row(i)]);
-    T a_bar = -(nb * dp[row(i - 1)]);
+    const T db = -(nb * x_c);
+    T a_bar = -(nb * dp_c);
     pend_dp = -(nb * a_l);
-    a_bar = a_bar - db * cp[row(i - 1)];
+    a_bar = a_bar - db * cp_c;
     pend_cp = -(db * a_l);
     bar[row(i)] = nb;
     pto_bar = pto_bar + nb * at[i];
@@ -646,24 +768,30 @@ __device__ __forceinline__ void month_vjp(const Consts<T>& g, const Hemi<T>& c, 
     kappa_carry = (tdl_bar * dt) * g.s[G_INV_DZ2];
   }
   for (i = n - 2; i >= 1; --i) {
+    tr.wait();
+    const T x_ip1 = x_c, cp_i = cp_c, dp_i = dp_c;  // x_{i+1}, c'_i, d'_i
+    x_c = tr.x(i);
+    cp_c = tr.cp(i);  // c'_{i-1}
+    dp_c = tr.dp(i);  // d'_{i-1}
+    tr.fetch(i - RING, 3, i - RING >= 1);
     const T kappa_i = kappa(i);
     const T kappa_im1 = kappa(i - 1);
     const T tdu = kappa_im1 * geo.idzu[i - 1] * dt;
     const T tdd = kappa_i * g.s[G_INV_DZ2] * dt;
     const T a_i = -tdu * at[i];
     const T b_i = T(1.0) + tdu * at[i] + tdd * ab[i] + tul * at[i];
-    const T den = b_i - a_i * cp[row(i - 1)];
+    const T den = b_i - a_i * cp_c;
     const T xb_i = bar[row(i)];
     const T dp_bar = xb_i + pend_dp;
-    const T cp_bar = pend_cp - xb_i * xs[row(i + 1)];
+    const T cp_bar = pend_cp - xb_i * x_ip1;
     const T nb = dp_bar / den;
-    T db = -(nb * dp[row(i)]);
-    T a_bar = -(nb * dp[row(i - 1)]);
+    T db = -(nb * dp_i);
+    T a_bar = -(nb * dp_c);
     pend_dp = -(nb * a_i);
     const T c_bar = cp_bar / den;
-    db = db - c_bar * cp[row(i)];
+    db = db - c_bar * cp_i;
     const T b_bar = db;
-    a_bar = a_bar - db * cp[row(i - 1)];
+    a_bar = a_bar - db * cp_c;
     pend_cp = -(db * a_i);
     bar[row(i)] = nb;
     pto_bar = pto_bar + nb * ad[i];
@@ -695,11 +823,11 @@ __device__ __forceinline__ void month_vjp(const Consts<T>& g, const Hemi<T>& c, 
                tu0 * sc[S_PI_RATIO] * ab[0];
   const T xb0 = bar[row(0)];
   const T dp0_bar = xb0 + pend_dp;
-  const T cp0_bar = pend_cp - xb0 * xs[row(1)];
+  const T cp0_bar = pend_cp - xb0 * x_c;  // x_1; cp_c, dp_c are c'_0, d'_0
   const T d0_bar = dp0_bar / b0;
-  T b0_bar = -(d0_bar * dp[row(0)]);
+  T b0_bar = -(d0_bar * dp_c);
   const T c0_bar = cp0_bar / b0;
-  b0_bar = b0_bar - c0_bar * cp[row(0)];
+  b0_bar = b0_bar - c0_bar * cp_c;
   bar[row(0)] = d0_bar;
   const T kb_bar = d0_bar * ab[0];
   const T pp = prof(1) - t_polar;
@@ -767,6 +895,8 @@ __device__ __forceinline__ void month_vjp(const Consts<T>& g, const Hemi<T>& c, 
   const T s1_bar = dfb_bar * c.f_o;
   s[S_K_LO] += s1_bar;
   s[S_LAM_L] += s1_bar * c.f_l;
+  s[S_KAPPA_MIN] += kmin_sum;
+  s[S_KAPPA] += kappa_sum;
   const T dd = ocean0 - ocean_last;
   s[S_KAPPA_DKDT] += dkdt_bar * dd;
   const T dd_bar = dkdt_bar * sc[S_KAPPA_DKDT];
@@ -802,15 +932,19 @@ __device__ __forceinline__ void month_vjp(const Consts<T>& g, const Hemi<T>& c, 
 // ---------------------------------------------------------------------------
 
 // Dynamic shared memory of a block of each kernel: the threads' arrays
-// (forward: column and c'; tangent: the same as dual numbers; adjoint: d',
-// c', the unclamped solution, the column's and the profile's cotangents),
-// the geometry, and the initial profile (the tangent kernel: and its
-// tangent), each 2n.
+// (forward: column and c'; tangent: the column as dual numbers and the
+// ring of its c'; adjoint: the column's and the profile's cotangents, which
+// its forward pass uses for its column and c', and the ring of the tape's
+// three planes), the geometry, and the initial profile (the tangent kernel:
+// and its tangent), each 2n.
 template <typename T, int K>
 __host__ __device__ inline size_t smem_bytes(int n, int threads) {
   const size_t geo = sizeof(T) * (geom_len(n) + 2 * n);
-  if (K == K_JVP) return 2 * sizeof(T) * (size_t)threads * (2 * n - 1) + geo + sizeof(T) * 2 * n;
-  if (K == K_VJP) return sizeof(T) * (size_t)threads * (5 * n - 1) + geo;
+  if (K == K_JVP) return 2 * sizeof(T) * (size_t)threads * (n + RING) + geo + sizeof(T) * 2 * n;
+  if (K == K_JVP_SHARED) {
+    return 2 * sizeof(T) * (size_t)threads * (2 * n - 1) + geo + sizeof(T) * 2 * n;
+  }
+  if (K == K_VJP) return sizeof(T) * (size_t)threads * (2 * n + 3 * RING) + geo;
   return sizeof(T) * (size_t)threads * (2 * n - 1) + geo;
 }
 
@@ -887,7 +1021,7 @@ __global__ void __launch_bounds__(MAX_THREADS, MinBlocks<T>::value) udeb_year_ke
   const int nt = blockDim.x;
   const int tid = threadIdx.x;
   T* col = reinterpret_cast<T*>(smem_raw);  // [n][nt]
-  T* cpr = col + (size_t)n * nt;            // [n-1][nt]
+  SmemRows<T> cpr{col + (size_t)n * nt + tid, nt};  // [n-1][nt]
   const Setup<T> su = stage<T>(smem_raw, sizeof(T) * (size_t)nt * (2 * n - 1), n, geom, init,
                                init_s0, init_s1 == 0, nullptr, 0, false);
 
@@ -916,7 +1050,7 @@ __global__ void __launch_bounds__(MAX_THREADS, MinBlocks<T>::value) udeb_year_ke
     // version's host float m / steps rounded to T
     const T frac = T(step + 1) / T(steps);
     month<T, T, false>(g, c, su.geo, ln, sc, air, aeff, w_thresh, prof, frac, land_heat, col,
-                       cpr, nullptr, land, ground, hemi, upw);
+                       cpr, Tape<T>{}, land, ground, hemi, upw);
   }
 
   for (int i = 0; i < n; ++i) ocean_out[(int64_t)(h * n + i) * B + m] = col[i * nt + tid];
@@ -927,28 +1061,40 @@ __global__ void __launch_bounds__(MAX_THREADS, MinBlocks<T>::value) udeb_year_ke
 }
 
 // The tangent-linear year: the forward on dual numbers.  The tangents are
-// dense (rows, B) but t_init, which has strides of its own.
-template <typename T>
+// dense (rows, B) but t_init, which has strides of its own.  The dual c'
+// lives in shared memory (SHARED: the layout of the fewest threads a block,
+// whose sweeps wait on nothing, for a batch that one wave of it holds) or
+// in cscratch, (n - 1) rows of 2B dual numbers read back through a ring
+// (the layout of the most resident warps, for a larger batch).
+template <typename T, bool SHARED>
 __global__ void __launch_bounds__(MAX_THREADS, 1) udeb_year_jvp_kernel(
     const Consts<T> g, int n, int steps, int land_heat, const T* __restrict__ geom,
     const T* __restrict__ scal, const T* __restrict__ t_scal, const T* __restrict__ ocean_in,
     const T* __restrict__ t_ocean, const T* __restrict__ init, int64_t init_s0,
     int64_t init_s1, const T* __restrict__ t_init, int64_t t_init_s0, int64_t t_init_s1,
     const T* __restrict__ vec_in, const T* __restrict__ t_vec, T* __restrict__ t_ocean_out,
-    T* __restrict__ t_vec_out, int64_t B) {
+    T* __restrict__ t_vec_out, T* __restrict__ cscratch, int64_t B) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   using D = Dual<T>;
   const int nt = blockDim.x;
   const int tid = threadIdx.x;
   D* col = reinterpret_cast<D*>(smem_raw);  // [n][nt]
-  D* cpr = col + (size_t)n * nt;            // [n-1][nt]
-  const Setup<T> su = stage<T>(smem_raw, sizeof(D) * (size_t)nt * (2 * n - 1), n, geom, init,
-                               init_s0, init_s1 == 0, t_init, t_init_s0, t_init_s1 == 0);
+  D* rows = col + (size_t)n * nt;           // c' [n-1][nt], or the ring [RING][nt]
+  const Setup<T> su = stage<T>(smem_raw, sizeof(D) * (size_t)nt * (SHARED ? 2 * n - 1 : n + RING),
+                               n, geom, init, init_s0, init_s1 == 0, t_init, t_init_s0,
+                               t_init_s1 == 0);
 
   const int h = tid & 1;
   const int64_t m = blockIdx.x * (int64_t)(nt >> 1) + (tid >> 1);
   if (m >= B) return;
   const Lane ln{n, nt, tid, h, 3u << (tid & 30)};
+  auto cpr = [&] {
+    if constexpr (SHARED) {
+      return SmemRows<D>{rows + tid, nt};
+    } else {
+      return RingRows<D>{reinterpret_cast<D*>(cscratch) + 2 * m + h, 2 * B, rows + tid, nt, n};
+    }
+  }();
 
   D sc[S_ROWS];
 #pragma unroll
@@ -971,7 +1117,7 @@ __global__ void __launch_bounds__(MAX_THREADS, 1) udeb_year_jvp_kernel(
   for (int step = 0; step < steps; ++step) {
     const T frac = T(step + 1) / T(steps);
     month<T, D, false>(g, c, su.geo, ln, sc, air, aeff, w_thresh, prof, frac, land_heat, col,
-                       cpr, nullptr, land, ground, hemi, upw);
+                       cpr, Tape<T>{}, land, ground, hemi, upw);
   }
 
   for (int i = 0; i < n; ++i) t_ocean_out[(int64_t)(h * n + i) * B + m] = col[i * nt + tid].t;
@@ -981,9 +1127,12 @@ __global__ void __launch_bounds__(MAX_THREADS, 1) udeb_year_jvp_kernel(
   t_vec_out[(6 + h) * B + m] = upw.t;
 }
 
-// The adjoint year.  scratch holds each month's starting state, (steps x
-// (2n + 8), B): the rows h * n + i of the columns, then 2n + 4h + k of each
-// hemisphere's land, ground, exchange and upwelling.
+// The adjoint year.  tape holds the forward pass's tape, three planes (x,
+// c', d') of (steps x n) rows of 2B values (Tape); state each month's
+// starting scalars, (steps x V_ROWS) rows of 2B: the column's top and
+// bottom values, land, ground, ground after the damping, upwelling.
+enum StateRow { V_OCEAN0, V_OCEAN_LAST, V_LAND, V_GROUND, V_GROUND1, V_UPW, V_ROWS };
+
 template <typename T>
 __global__ void __launch_bounds__(MAX_THREADS, 1) udeb_year_vjp_kernel(
     const Consts<T> g, int n, int steps, int land_heat, const T* __restrict__ geom,
@@ -991,17 +1140,15 @@ __global__ void __launch_bounds__(MAX_THREADS, 1) udeb_year_vjp_kernel(
     int64_t init_s0, int64_t init_s1, const T* __restrict__ vec_in,
     const T* __restrict__ g_ocean, const T* __restrict__ g_vec, T* __restrict__ gs_out,
     T* __restrict__ go_out, T* __restrict__ gi_out, T* __restrict__ gv_out,
-    T* __restrict__ scratch, int64_t B) {
+    T* __restrict__ tape, T* __restrict__ state, int64_t B) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int nt = blockDim.x;
   const int tid = threadIdx.x;
-  T* col = reinterpret_cast<T*>(smem_raw);  // [n][nt]: the column, then d'
-  T* cpr = col + (size_t)n * nt;            // [n-1][nt]: c'
-  T* xs = cpr + (size_t)(n - 1) * nt;       // [n][nt]: the unclamped solution
-  T* bar = xs + (size_t)n * nt;             // [n][nt]: the column's cotangents
+  T* bar = reinterpret_cast<T*>(smem_raw);  // [n][nt]: the column's cotangents
   T* pb = bar + (size_t)n * nt;             // [n][nt]: the profile's cotangents
-  const Setup<T> su = stage<T>(smem_raw, sizeof(T) * (size_t)nt * (5 * n - 1), n, geom, init,
-                               init_s0, init_s1 == 0, nullptr, 0, false);
+  T* ring = pb + (size_t)n * nt;            // [3][RING][nt]: the tape's rows
+  const Setup<T> su = stage<T>(smem_raw, sizeof(T) * (size_t)nt * (2 * n + 3 * RING), n, geom,
+                               init, init_s0, init_s1 == 0, nullptr, 0, false);
 
   const int h = tid & 1;
   const int64_t m = blockIdx.x * (int64_t)(nt >> 1) + (tid >> 1);
@@ -1011,7 +1158,6 @@ __global__ void __launch_bounds__(MAX_THREADS, 1) udeb_year_vjp_kernel(
   T sc[S_ROWS];
 #pragma unroll
   for (int r = 0; r < S_ROWS; ++r) sc[r] = scal[r * B + m];
-  for (int i = 0; i < n; ++i) col[i * nt + tid] = ocean_in[(int64_t)(h * n + i) * B + m];
   T land = vec_in[(0 + h) * B + m];
   T ground = vec_in[(2 + h) * B + m];
   T hemi = vec_in[(4 + h) * B + m];
@@ -1021,19 +1167,29 @@ __global__ void __launch_bounds__(MAX_THREADS, 1) udeb_year_vjp_kernel(
   const Hemi<T> c = hemi_consts(g, h);
   const Air<T> air = air_consts<T>(sc);
   const T w_thresh = h ? sc[S_W_THRESH_SH] : sc[S_W_THRESH_NH];
-  const int rows = 2 * n + 8;
-  auto slot = [&](int step, int r) -> T& { return scratch[((int64_t)step * rows + r) * B + m]; };
+  const int64_t tw = 2 * B, me = 2 * m + h;
+  const int64_t plane = (int64_t)steps * n * tw;
+  auto tape_of = [&](int step) {
+    T* x = tape + (int64_t)step * n * tw + me;
+    return Tape<T>{x, x + plane, x + 2 * plane, tw};
+  };
+  auto slot = [&](int step, int r) -> T& { return state[((int64_t)step * V_ROWS + r) * tw + me]; };
 
-  // the checkpoint: the forward, keeping each month's starting state
+  // the forward pass, writing the tape; its column and c' use the
+  // cotangents' rows
+  T* col = bar;
+  SmemRows<T> cpr{pb + tid, nt};
+  for (int i = 0; i < n; ++i) col[i * nt + tid] = ocean_in[(int64_t)(h * n + i) * B + m];
   for (int step = 0; step < steps; ++step) {
-    for (int i = 0; i < n; ++i) slot(step, h * n + i) = col[i * nt + tid];
-    slot(step, 2 * n + 4 * h + 0) = land;
-    slot(step, 2 * n + 4 * h + 1) = ground;
-    slot(step, 2 * n + 4 * h + 2) = hemi;
-    slot(step, 2 * n + 4 * h + 3) = upw;
+    slot(step, V_OCEAN0) = col[tid];
+    slot(step, V_OCEAN_LAST) = col[(n - 1) * nt + tid];
+    slot(step, V_LAND) = land;
+    slot(step, V_GROUND) = ground;
+    slot(step, V_UPW) = upw;
     const T frac = T(step + 1) / T(steps);
-    month<T, T, false>(g, c, su.geo, ln, sc, air, aeff, w_thresh, prof, frac, land_heat, col,
-                       cpr, nullptr, land, ground, hemi, upw);
+    month<T, T, true>(g, c, su.geo, ln, sc, air, aeff, w_thresh, prof, frac, land_heat, col,
+                      cpr, tape_of(step), land, ground, hemi, upw);
+    slot(step, V_GROUND1) = ground;  // the damping is the month's only change to it
   }
 
   // the outputs' cotangents
@@ -1050,24 +1206,15 @@ __global__ void __launch_bounds__(MAX_THREADS, 1) udeb_year_vjp_kernel(
   for (int r = 0; r < S_SHARED; ++r) sb.s[r] = T(0);
   sb.w_thresh = sb.aeff = sb.delta_max = T(0);
 
-  // the months in reverse: rebuild each from its checkpoint, then its adjoint
+  // the months in reverse, each from its tape
   for (int step = steps - 1; step >= 0; --step) {
-    for (int i = 0; i < n; ++i) col[i * nt + tid] = slot(step, h * n + i);
-    const T land0 = slot(step, 2 * n + 4 * h + 0);
-    const T ground0 = slot(step, 2 * n + 4 * h + 1);
-    const T hemi0 = slot(step, 2 * n + 4 * h + 2);
-    const T upw0 = slot(step, 2 * n + 4 * h + 3);
-    const T ocean0 = col[tid];
-    const T ocean_last = col[(n - 1) * nt + tid];
-    T l = land0, gr = ground0, he = hemi0, up = upw0;
+    TapeRing<T> tr{tape_of(step), ring + tid, nt};
     const T frac = T(step + 1) / T(steps);
-    month<T, T, true>(g, c, su.geo, ln, sc, air, aeff, w_thresh, prof, frac, land_heat, col,
-                      cpr, xs, l, gr, he, up);
-    month_vjp<T>(g, c, su.geo, ln, sc, air, aeff, w_thresh, prof, frac, land_heat, ocean0,
-                 ocean_last, land0, ground0, gr, upw0, col, cpr, xs, bar, pb, land_b, ground_b,
-                 hemi_b, upw_b, sb);
+    month_vjp<T>(g, c, su.geo, ln, sc, air, aeff, w_thresh, prof, frac, land_heat,
+                 slot(step, V_OCEAN0), slot(step, V_OCEAN_LAST), slot(step, V_LAND),
+                 slot(step, V_GROUND), slot(step, V_GROUND1), slot(step, V_UPW), tr, bar, pb,
+                 land_b, ground_b, hemi_b, upw_b, sb);
   }
-
   // the SST -> air map's constants, once a year
   T* s = sb.s;
   const T dm = sb.delta_max;
@@ -1102,13 +1249,14 @@ __global__ void __launch_bounds__(MAX_THREADS, 1) udeb_year_vjp_kernel(
 
 template <typename T, int K>
 const void* kernel_fn() {
-  if (K == K_JVP) return (const void*)udeb_year_jvp_kernel<T>;
+  if (K == K_JVP) return (const void*)udeb_year_jvp_kernel<T, false>;
+  if (K == K_JVP_SHARED) return (const void*)udeb_year_jvp_kernel<T, true>;
   if (K == K_VJP) return (const void*)udeb_year_vjp_kernel<T>;
   return (const void*)udeb_year_kernel<T>;
 }
 
 struct Config {
-  int device = -1, n = -1, threads = 0, blocks_per_sm = 0;
+  int device = -1, n = -1, threads = 0, blocks_per_sm = 0, sms = 0;
   size_t smem = 0;
 };
 
@@ -1154,6 +1302,8 @@ cudaError_t config(int n, Config* out) {
     }
   }
   if (best.blocks_per_sm == 0) return cudaErrorInvalidConfiguration;
+  err = cudaDeviceGetAttribute(&best.sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
   best.device = device;
   best.n = n;
   cache[next] = best;
@@ -1175,6 +1325,18 @@ inline unsigned grid_of(long long B, const Config& c) {
   return (unsigned)((B + members_per_block - 1) / members_per_block);
 }
 
+// The derivative kernels' block for a batch of B: the configuration's,
+// halved (down to one warp) while its grid would leave SMs without a block,
+// so that a gradient's small batch spreads its warps over the SMs instead
+// of sharing the pipelines of a few.
+template <typename T, int K>
+void spread(long long B, int n, Config* c) {
+  while (c->threads > MIN_THREADS && (long long)grid_of(B, *c) < c->sms) {
+    c->threads /= 2;
+    c->smem = smem_bytes<T, K>(n, c->threads);
+  }
+}
+
 template <typename T>
 int launch(const T* consts, int n_consts, int n, int steps, int land_heat, const T* geom,
            const T* scal, const T* ocean, const T* init, long long init_s0, long long init_s1,
@@ -1190,54 +1352,113 @@ int launch(const T* consts, int n_consts, int n, int steps, int land_heat, const
   return (int)cudaGetLastError();
 }
 
+// The tangent kernel's layout for a launch of B members at n layers: its
+// dual c' in shared memory (K_JVP_SHARED: the fewest resident warps, but
+// sweeps that wait on no device-memory round trip) when n fits that layout
+// and one wave of it, every SM holding as many blocks as it can, holds the
+// whole batch, as at a gradient's batch; else in device memory through the
+// ring (K_JVP: the forward's occupancy, and about its layer limit).
+template <typename T>
+cudaError_t jvp_kind(int n, long long B, int* kind) {
+  *kind = K_JVP;
+  if (n > max_layers<T, K_JVP_SHARED>()) return cudaSuccess;
+  Config c;
+  const cudaError_t err = config<T, K_JVP_SHARED>(n, &c);
+  if (err != cudaSuccess) return err;
+  if (B <= (long long)c.sms * c.blocks_per_sm * (c.threads / 2)) *kind = K_JVP_SHARED;
+  return cudaSuccess;
+}
+
+// Values of the device scratch buffer a launch of B members needs, which
+// the caller allocates (udeb_year_config_*): the ring layout's dual c',
+// (n - 1) rows of 2B value/tangent pairs; the adjoint's tape, three planes
+// (x, c', d') of steps x n rows of 2B, then its months' starting scalars,
+// steps x V_ROWS rows of 2B.
+inline long long scratch_len(int kind, int n, int steps, long long B) {
+  if (kind == K_JVP) return (long long)(n - 1) * 2 * B * 2;
+  if (kind == K_VJP) return (long long)steps * (3 * n + V_ROWS) * 2 * B;
+  return 0;
+}
+
+template <typename T, int K>
+int launch_jvp_as(const T* consts, int n_consts, int n, int steps, int land_heat, const T* geom,
+                  const T* scal, const T* t_scal, const T* ocean, const T* t_ocean,
+                  const T* init, long long init_s0, long long init_s1, const T* t_init,
+                  long long t_init_s0, long long t_init_s1, const T* vec, const T* t_vec,
+                  T* t_ocean_out, T* t_vec_out, T* cscratch, long long B, void* stream) {
+  Consts<T> g;
+  Config c;
+  const int err = prepare<T, K>(consts, n_consts, n, steps, &g, &c);
+  if (err != 0) return err;
+  if (B <= 0) return 0;
+  spread<T, K>(B, n, &c);
+  udeb_year_jvp_kernel<T, K == K_JVP_SHARED><<<grid_of(B, c), c.threads, c.smem,
+                                               (cudaStream_t)stream>>>(
+      g, n, steps, land_heat, geom, scal, t_scal, ocean, t_ocean, init, init_s0, init_s1,
+      t_init, t_init_s0, t_init_s1, vec, t_vec, t_ocean_out, t_vec_out, cscratch, B);
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 int launch_jvp(const T* consts, int n_consts, int n, int steps, int land_heat, const T* geom,
                const T* scal, const T* t_scal, const T* ocean, const T* t_ocean, const T* init,
                long long init_s0, long long init_s1, const T* t_init, long long t_init_s0,
                long long t_init_s1, const T* vec, const T* t_vec, T* t_ocean_out,
-               T* t_vec_out, long long B, void* stream) {
-  Consts<T> g;
-  Config c;
-  const int err = prepare<T, K_JVP>(consts, n_consts, n, steps, &g, &c);
-  if (err != 0) return err;
-  if (B <= 0) return 0;
-  udeb_year_jvp_kernel<T><<<grid_of(B, c), c.threads, c.smem, (cudaStream_t)stream>>>(
-      g, n, steps, land_heat, geom, scal, t_scal, ocean, t_ocean, init, init_s0, init_s1,
-      t_init, t_init_s0, t_init_s1, vec, t_vec, t_ocean_out, t_vec_out, B);
-  return (int)cudaGetLastError();
+               T* t_vec_out, T* scratch, long long scratch_n, long long B, void* stream) {
+  int kind = K_JVP;
+  const cudaError_t err = jvp_kind<T>(n, B, &kind);
+  if (err != cudaSuccess) return (int)err;
+  if (scratch_n < scratch_len(kind, n, steps, B)) return (int)cudaErrorInvalidValue;
+  auto as = kind == K_JVP_SHARED ? launch_jvp_as<T, K_JVP_SHARED> : launch_jvp_as<T, K_JVP>;
+  return as(consts, n_consts, n, steps, land_heat, geom, scal, t_scal, ocean, t_ocean, init,
+            init_s0, init_s1, t_init, t_init_s0, t_init_s1, vec, t_vec, t_ocean_out, t_vec_out,
+            scratch, B, stream);
 }
 
 template <typename T>
 int launch_vjp(const T* consts, int n_consts, int n, int steps, int land_heat, const T* geom,
                const T* scal, const T* ocean, const T* init, long long init_s0,
                long long init_s1, const T* vec, const T* g_ocean, const T* g_vec, T* gs_out,
-               T* go_out, T* gi_out, T* gv_out, T* scratch, long long B, void* stream) {
+               T* go_out, T* gi_out, T* gv_out, T* scratch, long long scratch_n, long long B,
+               void* stream) {
   Consts<T> g;
   Config c;
   const int err = prepare<T, K_VJP>(consts, n_consts, n, steps, &g, &c);
   if (err != 0) return err;
+  if (scratch_n < scratch_len(K_VJP, n, steps, B)) return (int)cudaErrorInvalidValue;
   if (B <= 0) return 0;
+  T* tape = scratch;
+  T* state = scratch + (long long)3 * steps * n * 2 * B;
+  spread<T, K_VJP>(B, n, &c);
   udeb_year_vjp_kernel<T><<<grid_of(B, c), c.threads, c.smem, (cudaStream_t)stream>>>(
       g, n, steps, land_heat, geom, scal, ocean, init, init_s0, init_s1, vec, g_ocean, g_vec,
-      gs_out, go_out, gi_out, gv_out, scratch, B);
+      gs_out, go_out, gi_out, gv_out, tape, state, B);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int query(int kind, int n, int* threads, int* blocks_per_sm, long long* smem) {
+int query(int kind, int n, int steps, long long B, int* threads, int* blocks_per_sm,
+          long long* smem, long long* scratch) {
   Config c;
-  cudaError_t err;
+  cudaError_t err = cudaSuccess;
+  if (kind == K_JVP && B > 0) err = jvp_kind<T>(n, B, &kind);
+  if (err != cudaSuccess) return (int)err;
   if (kind == K_JVP) {
     err = config<T, K_JVP>(n, &c);
+  } else if (kind == K_JVP_SHARED) {
+    err = config<T, K_JVP_SHARED>(n, &c);
   } else if (kind == K_VJP) {
     err = config<T, K_VJP>(n, &c);
-  } else {
+  } else if (kind == K_FORWARD) {
     err = config<T, K_FORWARD>(n, &c);
+  } else {
+    err = cudaErrorInvalidValue;
   }
   if (err != cudaSuccess) return (int)err;
   *threads = c.threads;
   *blocks_per_sm = c.blocks_per_sm;
   *smem = (long long)c.smem;
+  *scratch = scratch_len(kind, n, steps, B > 0 ? B : 0);
   return 0;
 }
 
@@ -1261,16 +1482,19 @@ extern "C" int udeb_year_f64(const double* consts, int n_consts, int n, int step
                         init_s1, vec, ocean_out, vec_out, B, stream);
 }
 
+// The tangent kernel, in the layout jvp_kind picks; scratch holds the
+// ring layout's dual c' (scratch_n values, from udeb_year_config_*).
 extern "C" int udeb_year_jvp_f32(const float* consts, int n_consts, int n, int steps,
                                  int land_heat, const float* geom, const float* scal,
                                  const float* t_scal, const float* ocean, const float* t_ocean,
                                  const float* init, long long init_s0, long long init_s1,
                                  const float* t_init, long long t_init_s0, long long t_init_s1,
                                  const float* vec, const float* t_vec, float* t_ocean_out,
-                                 float* t_vec_out, long long B, void* stream) {
+                                 float* t_vec_out, float* scratch, long long scratch_n,
+                                 long long B, void* stream) {
   return launch_jvp<float>(consts, n_consts, n, steps, land_heat, geom, scal, t_scal, ocean,
                            t_ocean, init, init_s0, init_s1, t_init, t_init_s0, t_init_s1, vec,
-                           t_vec, t_ocean_out, t_vec_out, B, stream);
+                           t_vec, t_ocean_out, t_vec_out, scratch, scratch_n, B, stream);
 }
 
 extern "C" int udeb_year_jvp_f64(const double* consts, int n_consts, int n, int steps,
@@ -1279,23 +1503,25 @@ extern "C" int udeb_year_jvp_f64(const double* consts, int n_consts, int n, int 
                                  const double* t_ocean, const double* init, long long init_s0,
                                  long long init_s1, const double* t_init, long long t_init_s0,
                                  long long t_init_s1, const double* vec, const double* t_vec,
-                                 double* t_ocean_out, double* t_vec_out, long long B,
-                                 void* stream) {
+                                 double* t_ocean_out, double* t_vec_out, double* scratch,
+                                 long long scratch_n, long long B, void* stream) {
   return launch_jvp<double>(consts, n_consts, n, steps, land_heat, geom, scal, t_scal, ocean,
                             t_ocean, init, init_s0, init_s1, t_init, t_init_s0, t_init_s1, vec,
-                            t_vec, t_ocean_out, t_vec_out, B, stream);
+                            t_vec, t_ocean_out, t_vec_out, scratch, scratch_n, B, stream);
 }
 
+// The adjoint kernel; scratch holds its tape (scratch_n values, from
+// udeb_year_config_*).
 extern "C" int udeb_year_vjp_f32(const float* consts, int n_consts, int n, int steps,
                                  int land_heat, const float* geom, const float* scal,
                                  const float* ocean, const float* init, long long init_s0,
                                  long long init_s1, const float* vec, const float* g_ocean,
                                  const float* g_vec, float* gs_out, float* go_out,
-                                 float* gi_out, float* gv_out, float* scratch, long long B,
-                                 void* stream) {
+                                 float* gi_out, float* gv_out, float* scratch,
+                                 long long scratch_n, long long B, void* stream) {
   return launch_vjp<float>(consts, n_consts, n, steps, land_heat, geom, scal, ocean, init,
                            init_s0, init_s1, vec, g_ocean, g_vec, gs_out, go_out, gi_out,
-                           gv_out, scratch, B, stream);
+                           gv_out, scratch, scratch_n, B, stream);
 }
 
 extern "C" int udeb_year_vjp_f64(const double* consts, int n_consts, int n, int steps,
@@ -1303,24 +1529,29 @@ extern "C" int udeb_year_vjp_f64(const double* consts, int n_consts, int n, int 
                                  const double* ocean, const double* init, long long init_s0,
                                  long long init_s1, const double* vec, const double* g_ocean,
                                  const double* g_vec, double* gs_out, double* go_out,
-                                 double* gi_out, double* gv_out, double* scratch, long long B,
-                                 void* stream) {
+                                 double* gi_out, double* gv_out, double* scratch,
+                                 long long scratch_n, long long B, void* stream) {
   return launch_vjp<double>(consts, n_consts, n, steps, land_heat, geom, scal, ocean, init,
                             init_s0, init_s1, vec, g_ocean, g_vec, gs_out, go_out, gi_out,
-                            gv_out, scratch, B, stream);
+                            gv_out, scratch, scratch_n, B, stream);
 }
 
-// The launch configuration of a kernel (0 forward, 1 tangent, 2 adjoint) at
-// n layers: threads per block, resident blocks per SM
-// (cudaOccupancyMaxActiveBlocksPerMultiprocessor), shared bytes a block.
-extern "C" int udeb_year_config_f32(int kind, int n, int* threads, int* blocks_per_sm,
-                                    long long* smem) {
-  return query<float>(kind, n, threads, blocks_per_sm, smem);
+// The launch configuration of a kernel (0 forward, 1 tangent, 2 adjoint)
+// at n layers: threads per block, resident blocks per SM
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor), shared bytes a block,
+// and the values of device scratch a launch needs.  With B > 0 the
+// tangent's is that of the layout a launch of B members takes (jvp_kind:
+// no scratch when its c' stays in shared memory), and the scratch is that
+// of a launch of B members and steps months; B = 0 gives the tangent's
+// ring layout and no scratch.  The block is before spread halves it.
+extern "C" int udeb_year_config_f32(int kind, int n, int steps, long long B, int* threads,
+                                    int* blocks_per_sm, long long* smem, long long* scratch) {
+  return query<float>(kind, n, steps, B, threads, blocks_per_sm, smem, scratch);
 }
 
-extern "C" int udeb_year_config_f64(int kind, int n, int* threads, int* blocks_per_sm,
-                                    long long* smem) {
-  return query<double>(kind, n, threads, blocks_per_sm, smem);
+extern "C" int udeb_year_config_f64(int kind, int n, int steps, long long B, int* threads,
+                                    int* blocks_per_sm, long long* smem, long long* scratch) {
+  return query<double>(kind, n, steps, B, threads, blocks_per_sm, smem, scratch);
 }
 
 // The most layers each kernel takes in each dtype (see max_layers).
@@ -1328,5 +1559,7 @@ extern "C" int udeb_year_max_layers_f32() { return max_layers<float, K_FORWARD>(
 extern "C" int udeb_year_max_layers_f64() { return max_layers<double, K_FORWARD>(); }
 extern "C" int udeb_year_jvp_max_layers_f32() { return max_layers<float, K_JVP>(); }
 extern "C" int udeb_year_jvp_max_layers_f64() { return max_layers<double, K_JVP>(); }
+extern "C" int udeb_year_jvp_shared_max_layers_f32() { return max_layers<float, K_JVP_SHARED>(); }
+extern "C" int udeb_year_jvp_shared_max_layers_f64() { return max_layers<double, K_JVP_SHARED>(); }
 extern "C" int udeb_year_vjp_max_layers_f32() { return max_layers<float, K_VJP>(); }
 extern "C" int udeb_year_vjp_max_layers_f64() { return max_layers<double, K_VJP>(); }

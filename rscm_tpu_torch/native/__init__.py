@@ -1,7 +1,8 @@
 """
 ctypes bindings for the native (C++) host pieces: the graph-traversal
-engine (``native/graph_engine.cpp``) and the CSV scenario loader
-(``native/csv_loader.cpp``, :mod:`.csv`).
+engine (``native/src/graph_engine.cpp``) and the CSV scenario loader
+(``native/src/csv_loader.cpp``, :mod:`.csv`).  The sources are the
+package's own copy, shipped with it as package data.
 
 The reference implements its graph/schedule core in native code
 (``crates/rscm-core/src/model/runtime.rs``, petgraph); the port binds the
@@ -15,7 +16,7 @@ Loading strategy:
 1. ``RSCM_TPU_NATIVE=0`` disables native code entirely (pure Python).
 2. Otherwise each library is compiled with ``g++`` at first use into
    ``rscm_tpu_torch/_build/``, named by a hash of its source and flags, and
-   reused while the source is unchanged; the sources under ``native/`` are
+   reused while the source is unchanged; the sources under ``src/`` are
    only read.  A missing compiler or source, or a failed build, falls back
    to pure Python.
 """
@@ -33,7 +34,7 @@ from typing import List, Optional, Sequence, Tuple
 __all__ = ["load_graph_engine", "GraphEngine", "native_enabled", "build_library"]
 
 _ABI_VERSION = 1
-_NATIVE_DIR = Path(__file__).resolve().parents[2] / "native"
+_NATIVE_DIR = Path(__file__).resolve().parent / "src"
 _BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 _CXX_FLAGS = ("-O2", "-std=c++17", "-fPIC", "-shared")
 
@@ -46,7 +47,7 @@ def native_enabled() -> bool:
 
 
 def build_library(source: str) -> Optional[Path]:
-    """The shared library built from ``native/<source>``, compiled into
+    """The shared library built from ``src/<source>``, compiled into
     ``_build/`` unless an unchanged build is there; None when the source is
     missing or the build fails."""
     src = _NATIVE_DIR / source

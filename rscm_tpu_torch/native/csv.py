@@ -1,5 +1,5 @@
 """
-ctypes binding for the native CSV scenario loader (``native/csv_loader.cpp``)
+ctypes binding for the native CSV scenario loader (``native/src/csv_loader.cpp``)
 with a pure-Python fallback of identical semantics (port of the JAX
 package's ``native/csv.py``).
 

@@ -57,11 +57,11 @@ same with reciprocals precomputed in the working dtype (:func:`_geom`).
 
 **The derivatives** (:class:`UdebYearFunction`): on CUDA tensors the
 tangent kernel (forward mode, the month on dual numbers) and the adjoint
-kernel (reverse mode: a checkpointed replay of the year, then each month's
-adjoint from the twelfth to the first), in the same source; their plain
-versions are ``plain_jvp`` of :func:`udeb_year_plain` and the explicit
-twin :func:`udeb_year_vjp_plain`, which performs the adjoint kernel's
-operations in its order.  Each wrapper's docstring states what bounds its
+kernel (reverse mode: the year's forward once, writing a tape, then each
+month's adjoint from the twelfth to the first on its tape), in the same
+source; their plain versions are ``plain_jvp`` of :func:`udeb_year_plain`
+and the explicit twin :func:`udeb_year_vjp_plain`, which performs the
+adjoint kernel's operations in its order.  Each wrapper's docstring states what bounds its
 kernel and what the design does about it.
 """
 
@@ -379,13 +379,15 @@ def _min_bar(a, b, g):
             torch.where(a == b, half, torch.where(a < b, zero, g)))
 
 
-def _month_vjp_plain(st: UdebStatic, scal, state, alpha_eff, init_prof, frac, bars, acc):
+def _month_vjp_plain(st: UdebStatic, scal, state, alpha_eff, init_prof, frac, bars, acc, tp):
     """The adjoint of one month (the kernel's ``month_vjp``, same operations
     in the same order) on ``(2, B)`` tensors, one row a hemisphere as one
     thread a hemisphere in the kernel: ``state`` is the month's starting
-    ``(ocean (2, n, B), land, ground, hemi, upwell)``, ``bars`` the
-    cotangents of its outputs ``(ocean rows [n x (2, B)], land, ground,
-    hemi, upwell)``.  Returns the cotangents of its starting state;
+    ``(ocean (2, n, B), land, ground, hemi, upwell)``, ``tp`` the tape
+    :func:`_month_plain` wrote when it ran the month from that state,
+    ``bars`` the cotangents of its outputs ``(ocean rows [n x (2, B)],
+    land, ground, hemi, upwell)``.  Returns the cotangents of its starting
+    state;
     ``acc`` accumulates those of the constants: ``scal`` ``(S + 1, 2, B)``
     (the row ``S`` is each hemisphere's own upwelling threshold),
     ``alpha_eff``, ``prof`` (``[n x (2, B)]``) and ``delta_max`` (the SST->
@@ -426,8 +428,6 @@ def _month_vjp_plain(st: UdebStatic, scal, state, alpha_eff, init_prof, frac, ba
 
     ocean, land, ground, hemi, upw = state
     col_bar, land_bar, ground_bar, hemi_bar, upw_bar = bars
-    tp = {}
-    _month_plain(st, scal, ocean, land, ground, hemi, upw, alpha_eff, init_prof, frac, tape=tp)
     prof = [init_prof[:, i] for i in range(n)]
     cp, dp, x = tp["cp"], tp["dp"], tp["x"]
     mt = sc["max_temp"]
@@ -503,12 +503,17 @@ def _month_vjp_plain(st: UdebStatic, scal, state, alpha_eff, init_prof, frac, ba
     acc["delta_max"] = acc["delta_max"] + torch.where(nonzero & ~lower, t_bar, zero)
 
     # -- the clamp and back substitution -------------------------------------
+    # (a sum over the rows is taken within the month, then added to the
+    # year's: one running sum over every row of the year rounds far more in
+    # float32)
     xb = [None] * n
+    mt_sum = zero
     for i in range(n):
         g = col_bar[i] + sst_bar if i == 0 else col_bar[i]
         g_x, g_mt = _min_bar(x[i], mt, g)
-        add("max_temp", g_mt)
+        mt_sum = mt_sum + g_mt
         xb[i] = g_x if i == 0 else g_x - xb[i - 1] * cp[i - 1]
+    add("max_temp", mt_sum)
 
     # -- the forward sweep and the assembly, last row first ------------------
     col_in = [None] * n
@@ -520,13 +525,15 @@ def _month_vjp_plain(st: UdebStatic, scal, state, alpha_eff, init_prof, frac, ba
     pto_bar = zero
     k_dw_bar = zero
     k_dw_tp_bar = zero
+    kappa_sum = zero
+    kmin_sum = zero
 
     def kappa_bar_add(i, kb):
-        nonlocal dkdt_bar
+        nonlocal dkdt_bar, kappa_sum, kmin_sum
         g_k, g_min = _max_bar(tp["kappa_pre"][:, i], sc["kappa_min"], kb)
-        add("kappa_min", g_min)
+        kmin_sum = kmin_sum + g_min
         kp_bar = g_k * st.diffusivity_scale
-        add("kappa", kp_bar)
+        kappa_sum = kappa_sum + kp_bar
         dkdt_bar = dkdt_bar + kp_bar * omr[i]
 
     i = n - 1
@@ -662,6 +669,8 @@ def _month_vjp_plain(st: UdebStatic, scal, state, alpha_eff, init_prof, frac, ba
     s1_bar = dfb_bar * f_o
     add("k_lo", s1_bar)
     add("lam_l", s1_bar * f_l)
+    add("kappa_min", kmin_sum)
+    add("kappa", kappa_sum)
     dd = ocean0 - ocean_last
     add("kappa_dkdt", dkdt_bar * dd)
     dd_bar = dkdt_bar * sc["kappa_dkdt"]
@@ -695,12 +704,14 @@ def udeb_year_vjp_plain(st: UdebStatic, scal, ocean, init_prof, vec, g_ocean, g_
     from those of its outputs, ``g_ocean`` ``(2 n, B)`` and ``g_vec``
     ``(8, B)`` (``None`` reads as zero).
 
-    It replays the year with the plain forward (:func:`_month_plain`),
-    keeping each month's starting state, then takes the months' adjoints
-    from the twelfth to the first (:func:`_month_vjp_plain`): the transposed
-    Thomas solve, the assembly and the coupling step, every ``where``
-    sending its cotangent to the branch the forward took and every
-    ``minimum`` / ``maximum`` half of it to each operand at a tie.
+    It runs the year's forward once (:func:`_month_plain`), keeping each
+    month's starting state and its tape (the Thomas factors, the unclamped
+    solution and the values the adjoint reads), then takes the months'
+    adjoints from the twelfth to the first (:func:`_month_vjp_plain`) on
+    those tapes, with no month run again: the transposed Thomas solve, the
+    assembly and the coupling step, every ``where`` sending its cotangent to
+    the branch the forward took and every ``minimum`` / ``maximum`` half of
+    it to each operand at a tie.
     """
     n, b = st.n, ocean.shape[-1]
     like = dict(dtype=ocean.dtype, device=ocean.device)
@@ -709,10 +720,12 @@ def udeb_year_vjp_plain(st: UdebStatic, scal, ocean, init_prof, vec, g_ocean, g_
     alpha_eff = vec_pairs[4]
     with torch.no_grad():
         state = (ocean.reshape(2, n, b), *vec_pairs[:4])
-        states = []
+        states, tapes = [], []
         for m in range(1, st.steps + 1):
             states.append(state)
-            state = _month_plain(st, scal, *state[:5], alpha_eff, init_prof, m / st.steps)
+            tapes.append({})
+            state = _month_plain(st, scal, *state[:5], alpha_eff, init_prof, m / st.steps,
+                                 tape=tapes[-1])
         g_ocean = torch.zeros((2 * n, b), **like) if g_ocean is None else g_ocean
         g_vec = torch.zeros((8, b), **like) if g_vec is None else g_vec
         zero = torch.zeros((2, b), **like)
@@ -722,7 +735,7 @@ def udeb_year_vjp_plain(st: UdebStatic, scal, ocean, init_prof, vec, g_ocean, g_
                "delta_max": zero}
         for m in range(st.steps, 0, -1):
             bars = _month_vjp_plain(st, scal, states[m - 1], alpha_eff, init_prof,
-                                    m / st.steps, bars, acc)
+                                    m / st.steps, bars, acc, tapes[m - 1])
 
         # the SST->air map's constants, once a year
         sb = acc["scal"]
@@ -905,27 +918,46 @@ def max_kernel_layers(dtype, kernel: str = "udeb_year") -> int:
     """The most layers ``kernel`` (``udeb_year``, ``udeb_year_jvp`` or
     ``udeb_year_vjp``) takes in ``dtype``, as the kernel's library states it
     (``csrc/udeb_year.cu``, ``max_layers``): a block of one warp must fit
-    the shared memory a block may use.  Builds the kernels on first use."""
+    the shared memory a block may use.  409 / 818 layers (float64 /
+    float32) for the forward, 394 / 792 for the tangent kernel, 403 / 813
+    for the adjoint; ``udeb_year_jvp_shared`` gives the most, 212 / 424, at
+    which the tangent kernel may keep its c' in shared memory
+    (:func:`kernel_config`).  Builds the kernels on first use."""
     return int(_lib_fn(f"{kernel}_max_layers_{_SUFFIX[dtype]}", [])())
 
 
-def kernel_config(n: int, dtype, device=None, kernel: str = "udeb_year") -> dict:
+def kernel_config(n: int, dtype, device=None, kernel: str = "udeb_year", b: int = 0,
+                  steps: int = 12) -> dict:
     """``kernel``'s launch configuration at ``n`` layers on the current (or
-    given) card: threads per block, resident blocks per SM (from
-    ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``) and shared bytes per
-    block.  Raises above :func:`max_kernel_layers`."""
+    given) card, as its library states it (``udeb_year_config_*``):
+    threads per block, resident blocks per SM (from
+    ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), shared bytes per
+    block and ``scratch``, the values of the device buffer a launch of
+    ``b`` members and ``steps`` months needs.  For the tangent kernel with
+    ``b`` given, the configuration of the layout the library picks for
+    ``b`` members: its c' in shared memory (no scratch) while one wave of
+    that layout holds the batch, else in the scratch.  Raises above
+    :func:`max_kernel_layers`."""
     _check_layers(n, dtype, kernel)
-    p = ctypes.POINTER
+    p, ll = ctypes.POINTER, ctypes.c_longlong
     fn = _lib_fn(f"udeb_year_config_{_SUFFIX[dtype]}",
-                 [ctypes.c_int, ctypes.c_int, p(ctypes.c_int), p(ctypes.c_int),
-                  p(ctypes.c_longlong)])
-    threads, blocks, smem = ctypes.c_int(), ctypes.c_int(), ctypes.c_longlong()
+                 [ctypes.c_int, ctypes.c_int, ctypes.c_int, ll, p(ctypes.c_int),
+                  p(ctypes.c_int), p(ll), p(ll)])
+    threads, blocks, smem, scratch = ctypes.c_int(), ctypes.c_int(), ll(), ll()
     with torch.cuda.device(device if device is not None else torch.cuda.current_device()):
-        err = fn(_KINDS[kernel], n, ctypes.byref(threads), ctypes.byref(blocks),
-                 ctypes.byref(smem))
+        err = fn(_KINDS[kernel], n, steps, b, ctypes.byref(threads), ctypes.byref(blocks),
+                 ctypes.byref(smem), ctypes.byref(scratch))
     if err != 0:
         raise RuntimeError(f"{kernel}: no launch configuration at {n} layers (CUDA error {err})")
-    return {"threads": threads.value, "blocks_per_sm": blocks.value, "shared_bytes": smem.value}
+    return {"threads": threads.value, "blocks_per_sm": blocks.value, "shared_bytes": smem.value,
+            "scratch": scratch.value}
+
+
+def _scratch(kernel: str, st: UdebStatic, b: int, like: dict):
+    """The device scratch a launch of ``kernel`` on ``b`` members needs, at
+    the length its library states (:func:`kernel_config`)."""
+    c = kernel_config(st.n, like["dtype"], like["device"], kernel, b=b, steps=st.steps)
+    return torch.empty(c["scratch"], **like)
 
 
 def udeb_year(st: UdebStatic, scal, ocean, init_prof, vec):
@@ -1020,9 +1052,20 @@ def udeb_year_jvp(st: UdebStatic, primals, tangents):
     arithmetic); at a gradient's batch (1-512 members) the serial chain of
     each member's months.  *Design:* the forward's own month code, so the
     values are the forward's bit for bit and every branch decides on them;
-    the column and c' as dual numbers in shared memory, which halves the
-    layer limit (:func:`max_kernel_layers` of ``"udeb_year_jvp"``).  A
-    broadcast initial profile and its tangent keep their strides.
+    the dual column in shared memory, and the dual c' in one of two
+    layouts.  For a batch larger than one wave of
+    the second, c' goes to a device buffer (``(n - 1) x 2 B`` pairs from
+    ``torch.empty``) that the back sweep reads through a small shared ring
+    filled with ``cp.async`` ahead of it: per-thread shared memory about
+    the forward's, so the occupancy (8 warps an SM in float64 at 50
+    layers) and the layer limit (:func:`max_kernel_layers` of
+    ``"udeb_year_jvp"``) are about the forward's too.  For a gradient's
+    batch, which one wave holds whatever the occupancy, c' stays in shared
+    memory, so that the back sweep waits on no device-memory round trip
+    (fewer resident warps, 4 at 50 layers in float64, and 212 layers at
+    most).  The kernel's library picks the layout and states the buffer's
+    length (:func:`kernel_config`).  A broadcast initial profile and its
+    tangent keep their strides.
     """
     if primals[1].device.type == "cpu":
         return plain_jvp(functools.partial(udeb_year_plain, st), primals, tangents)
@@ -1044,13 +1087,17 @@ def _udeb_year_jvp_launch(st: UdebStatic, primals, tangents):
     consts, layers = _kernel_geom(st, ocean.dtype, ocean.device)
     t_ocean_out = torch.empty_like(ocean)
     t_vec_out = torch.empty((8, b), dtype=ocean.dtype, device=ocean.device)
+    # the ring layout's dual c' (none in the shared-memory layout)
+    scratch = _scratch("udeb_year_jvp", st, b, dict(dtype=ocean.dtype, device=ocean.device))
     _launch("udeb_year_jvp", _SUFFIX[ocean.dtype],
-            [p, i, i, i, i, p, p, p, p, p, p, ll, ll, p, ll, ll, p, p, p, p, ll], ocean.device,
+            [p, i, i, i, i, p, p, p, p, p, p, ll, ll, p, ll, ll, p, p, p, p, p, ll, ll],
+            ocean.device,
             consts.ctypes.data, consts.size, st.n, st.steps, int(st.land_heat_enabled),
             layers.data_ptr(), scal.data_ptr(), dense[0].data_ptr(), ocean.data_ptr(),
             dense[1].data_ptr(), init_prof.data_ptr(), init_prof.stride(0), init_prof.stride(1),
             t_init.data_ptr(), t_init.stride(0), t_init.stride(1), vec.data_ptr(),
-            dense[2].data_ptr(), t_ocean_out.data_ptr(), t_vec_out.data_ptr(), b)
+            dense[2].data_ptr(), t_ocean_out.data_ptr(), t_vec_out.data_ptr(),
+            scratch.data_ptr(), scratch.numel(), b)
     udeb_year_jvp.launches += 1
     note_launch("udeb_year_jvp", udeb_year_jvp_work, st, scal, ocean, init_prof, vec)
     return t_ocean_out, t_vec_out
@@ -1069,15 +1116,20 @@ def udeb_year_vjp(st: UdebStatic, scal, ocean, init_prof, vec, g_ocean, g_vec,
     (``rscm_tpu/ops/udeb_month.py:542-546``, not a ``pallas_call``).
     *Bound:* operations at a large batch (the function needs ~2.4x the
     forward's arithmetic, one forward and the adjoint; the kernel performs
-    ~3.5x, with the replay, each month's rebuild and the values its
-    reverse pass recomputes); at a gradient's batch the serial chain of
-    each member's months, run twice.  *Design:*
-    the forward's own month code writes each month's starting state to a
-    scratch buffer (``steps x (2 n + 8)`` values a member, from
-    ``torch.empty``), so the adjoint differentiates at the forward's state
-    bit for bit; each month is rebuilt in shared memory from its checkpoint
-    and reversed there, two threads a member swapping their cotangents with
-    a warp shuffle; the scalar rows' cotangents accumulate in registers.
+    about that, with the values its reverse pass recomputes); at a
+    gradient's batch the serial chain of each member's months, forward
+    then reverse.  *Design:* the forward's own month code runs the year
+    once and writes a tape to device buffers from ``torch.empty``: every
+    thread's unclamped solution, c' and d' of each column-month (``3 x
+    steps x n`` values a thread, in L2 at a gradient's batch) and each
+    month's starting scalars, so the adjoint differentiates at the
+    forward's state bit for bit and runs no month again.  Each month's
+    adjoint reads its tape back through a small shared ring filled with
+    ``cp.async`` ahead of its two sweeps; shared memory holds only the
+    column's and the profile's cotangents (the forward pass uses the same
+    rows), so the occupancy and the layer limit are about the forward's.
+    Two threads a member swap their cotangents with a warp shuffle; the
+    scalar rows' cotangents accumulate in registers.
     """
     needs = tuple(needs)
     if ocean.device.type == "cpu":
@@ -1099,13 +1151,16 @@ def _udeb_year_vjp_launch(st: UdebStatic, scal, ocean, init_prof, vec, g_ocean, 
     consts, layers = _kernel_geom(st, ocean.dtype, ocean.device)
     grads = (torch.empty((S + 2, b), **like), torch.empty((2 * n, b), **like),
              torch.empty((2 * n, b), **like), torch.empty((10, b), **like))
-    scratch = torch.empty((st.steps * (2 * n + 8), b), **like)
+    # the forward pass's tape: the unclamped solution, c' and d' of every
+    # thread's column-month, and each month's starting scalars
+    scratch = _scratch("udeb_year_vjp", st, b, like)
     _launch("udeb_year_vjp", _SUFFIX[ocean.dtype],
-            [p, i, i, i, i, p, p, p, p, ll, ll, p, p, p, p, p, p, p, p, ll], ocean.device,
+            [p, i, i, i, i, p, p, p, p, ll, ll, p, p, p, p, p, p, p, p, ll, ll], ocean.device,
             consts.ctypes.data, consts.size, n, st.steps, int(st.land_heat_enabled),
             layers.data_ptr(), scal.data_ptr(), ocean.data_ptr(), init_prof.data_ptr(),
             init_prof.stride(0), init_prof.stride(1), vec.data_ptr(), g_ocean.data_ptr(),
-            g_vec.data_ptr(), *(g.data_ptr() for g in grads), scratch.data_ptr(), b)
+            g_vec.data_ptr(), *(g.data_ptr() for g in grads), scratch.data_ptr(),
+            scratch.numel(), b)
     udeb_year_vjp.launches += 1
     note_launch("udeb_year_vjp", udeb_year_vjp_work, st, scal, ocean, init_prof, vec, g_ocean,
                 g_vec)
@@ -1168,9 +1223,9 @@ def udeb_year_vjp_work(st: UdebStatic, scal, ocean, init_prof, vec, g_ocean, g_v
     forward (:func:`udeb_year_work`'s arithmetic) and the arithmetic of
     :func:`udeb_year_vjp_plain` that reads the cotangents, on the first
     members, scaled; the inputs and the cotangents read once, the four
-    cotangents written once.  The month's replay, the forward values the
-    reverse pass recomputes and the checkpoint's traffic are the kernel's
-    choice, not work the function needs, and are not counted."""
+    cotangents written once.  The forward values the reverse pass
+    recomputes and the tape's traffic are the kernel's choice, not work the
+    function needs, and are not counted."""
     b = ocean.shape[-1]
     fwd_other, fwd_divisions, _ = udeb_year_work(st, scal, ocean, init_prof, vec)
     other, divisions = _sampled(udeb_year_vjp_plain, st, b, scal, ocean, init_prof, vec,

@@ -78,6 +78,11 @@ inline cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* blocks, co
   return cudaSuccess;
 }
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount };
+inline cudaError_t cudaDeviceGetAttribute(int* value, cudaDeviceAttr, int) {
+  *value = 1;  // one SM
+  return cudaSuccess;
+}
 
 template <typename F, typename... A>
 void launch_kernel(unsigned grid, int threads, F f, A... a) {

@@ -3,7 +3,9 @@
 ``rscm_tpu_torch/csrc/*.cu`` build only with ``nvcc`` on a card, but their
 arithmetic is plain C++: compiled here with ``g++`` against a stand-in CUDA
 runtime (``tests/host_cuda/cuda_runtime.h``: a block's threads as OS
-threads, the pair's warp shuffle as a swap), each kernel runs through the
+threads, the pair's warp shuffle as a swap; ``cuda_pipeline.h``: each
+``cp.async`` copy made only when the thread waits for its group), each
+kernel runs through the
 port's own wrappers (the ``ctypes`` calls, strides and work buffers) on CPU
 tensors and is held against its plain version in float64: the forward
 kernels against ``udeb_year_plain`` / ``lamcalc_plain``, the tangent kernels
@@ -40,7 +42,7 @@ B = 5  # two warps' pairs and a ragged edge: members 0-4 over blocks of 32 or 64
 def host_source(src: str) -> str:
     """The .cu source with its launches and its dynamic shared array
     rewritten for the stand-in runtime."""
-    src = re.sub(r"(\w+<T>)<<<(grid_of\(B, c\)|blocks_of\(B\)), ([^,]+), [^>]*>>>\(",
+    src = re.sub(r"(\w+<T[^<>]*>)<<<(grid_of\(B, c\)|blocks_of\(B\)), ([^,]+), [^>]*>>>\(",
                  r"launch_kernel(\2, \3, \1, ", src)
     return src.replace("extern __shared__ __align__(16) unsigned char smem_raw[];",
                        "unsigned char* smem_raw = g_smem;")
@@ -76,6 +78,9 @@ def on_host(host_libs, monkeypatch):
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda: types.SimpleNamespace(cuda_stream=0))
     monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    # one SM (the stand-in runs one block at a time)
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda device: types.SimpleNamespace(multi_processor_count=1))
     udeb_month.max_kernel_layers.cache_clear()
     yield
     udeb_month.max_kernel_layers.cache_clear()
@@ -118,14 +123,48 @@ def test_udeb_kernels_on_host_match_their_plain_versions(on_host, n_layers, land
             udeb_month.udeb_year_vjp.launches) == tuple(n + 1 for n in launches)
 
 
+@pytest.mark.parametrize("n_layers", [3, 17])
+def test_udeb_tangent_kernel_layouts_on_host_agree(on_host, n_layers):
+    """The tangent kernel's library keeps its dual c' in shared memory while
+    one wave of that layout holds the batch (here one SM of one block of 64
+    threads: 32 members) and in device memory, read back through its ring,
+    beyond; both run the same arithmetic, so the first 32 members of a
+    launch in each agree bit for bit."""
+    b = 40
+    comp = ClimateUDEB(n_layers=n_layers)
+    st = udeb_month.static_from_component(comp, 1.0)
+    primals = tuple(torch.tensor(a) for a in udeb_inputs(comp, 9, b=b))
+    rng = np.random.default_rng(10)
+    tangents = [torch.tensor(rng.normal(size=x.shape)) for x in primals]
+
+    def scratch(members):
+        return udeb_month.kernel_config(n_layers, torch.float64, "cpu", "udeb_year_jvp",
+                                        b=members, steps=st.steps)["scratch"]
+
+    assert scratch(b) == (n_layers - 1) * 2 * b * 2  # the ring layout's dual c'
+    assert scratch(32) == 0  # c' in shared memory
+    ring = udeb_month._udeb_year_jvp_launch(st, primals, tangents)
+    close(ring, plain_jvp(lambda *a: udeb_month.udeb_year_plain(st, *a), primals, tangents),
+          "jvp")
+
+    def first(xs):
+        return tuple(x[:, :32].contiguous() for x in xs)
+
+    shared = udeb_month._udeb_year_jvp_launch(st, first(primals), first(tangents))
+    for r, sh in zip(ring, shared):
+        assert torch.equal(r[:, :32], sh)
+
+
 def test_udeb_layer_limits_of_the_host_build(on_host):
     kernels = ("udeb_year", "udeb_year_jvp", "udeb_year_vjp")
     # a block of one warp in the 227 KB a block may use: the forward keeps
-    # 2n - 1 values a thread, the tangent as many dual numbers, the adjoint 5n - 1
-    assert [udeb_month.max_kernel_layers(torch.float64, k) for k in kernels] == [409, 212, 174]
-    assert [udeb_month.max_kernel_layers(torch.float32, k) for k in kernels] == [818, 424, 348]
-    with pytest.raises(ValueError, match="at most 174 layers"):
-        udeb_month._check_layers(175, torch.float64, "udeb_year_vjp")
+    # 2n - 1 values a thread, the tangent n + 4 dual numbers (its column and
+    # the ring of its c'), the adjoint 2n + 12 (the cotangents and the ring
+    # of its tape's three planes)
+    assert [udeb_month.max_kernel_layers(torch.float64, k) for k in kernels] == [409, 394, 403]
+    assert [udeb_month.max_kernel_layers(torch.float32, k) for k in kernels] == [818, 792, 813]
+    with pytest.raises(ValueError, match="at most 403 layers"):
+        udeb_month._check_layers(404, torch.float64, "udeb_year_vjp")
 
 
 @pytest.mark.parametrize("with_fallback", [True, False])
