@@ -550,6 +550,35 @@ extern "C" __global__ void mul_f32(const float* a, const float* b, float* o) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x; o[i] = a[i] * b[i]; }
 """
 
+#: appended to a copy of a ``lamcalc.cu``: the resident blocks an SM of each
+#: of its three kernels (0 forward, 1 tangent, 2 adjoint) at its block size
+#: and ``smem`` dynamic shared bytes, from the CUDA occupancy calculator
+LAMCALC_OCCUPANCY = r"""
+extern "C" int lamcalc_resident_blocks(int kind, int f64, int smem, int* blocks) {
+  const void* fns[3][2] = {
+      {(const void*)lamcalc_kernel<float>, (const void*)lamcalc_kernel<double>},
+      {(const void*)lamcalc_jvp_kernel<float>, (const void*)lamcalc_jvp_kernel<double>},
+      {(const void*)lamcalc_vjp_kernel<float>, (const void*)lamcalc_vjp_kernel<double>}};
+  const void* fn = fns[kind][f64];
+  if (smem > 48 * 1024) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, fn, kThreads, smem);
+}
+"""
+LAMCALC_KERNELS = ("lamcalc", "lamcalc_jvp", "lamcalc_vjp")
+#: two members whose first iterate lies on the land/ocean warming ratio's
+#: pole (``rlo`` set to its last bits; tests/test_torch_kernels.py,
+#: STALL_MEMBERS): their secants stall on one iterate until a denominator
+#: vanishes (branch code 3) before they converge, in float64
+STALL_MEMBERS = [
+    [1.2633767549784332, 7.437325381688504, 0.1080402269320665, 0.6036191807589846, rlo,
+     0.6940602750934692]
+    for rlo in (0.21437001022807176, 0.21437001022807184)
+]
+
 
 def start_division_probe(build):
     """Start ``nvcc`` on the division probe; returns ``(process, cubin)``."""
@@ -614,6 +643,80 @@ def division_instructions(probe):
 
         out[dn] = (len(div) - len(mul) + 1, fma_pipe(div) - fma_pipe(mul) + 1)
     return out
+
+
+def start_lamcalc_probe(build, source, tag, defines=()):
+    """Start ``nvcc`` on a copy of the ``lamcalc.cu`` at ``source`` with
+    LAMCALC_OCCUPANCY appended, with the kernels' flags and ``-D`` each of
+    ``defines``; returns ``(process, library path)``."""
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    src = build.BUILD_DIR / f"lamcalc_probe_{tag}.cu"
+    src.write_text(open(source).read() + LAMCALC_OCCUPANCY)
+    lib = build.BUILD_DIR / f"lamcalc_probe_{tag}.so"
+    cmd = [build._nvcc(), *build.NVCC_FLAGS, *(f"-D{d}" for d in defines), "-o", str(lib),
+           str(src)]
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), lib
+
+
+def ptxas_kernels(report):
+    """``{(kernel, dtype): {"registers", "stack", "spill_stores", "spill_loads"}}``
+    of the ``lamcalc*`` kernels in an ``-Xptxas -v`` report."""
+    import re
+
+    out, key = {}, None
+    for line in report.splitlines():
+        entry = re.search(r"Compiling entry function '\S*?\d+(lamcalc(?:_jvp|_vjp)?)_kernelI([fd])E",
+                          line)
+        if entry:
+            key = (entry.group(1), "float64" if entry.group(2) == "d" else "float32")
+            out[key] = {}
+            continue
+        if key is None:
+            continue
+        frame = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+        if frame:
+            out[key].update(stack=int(frame.group(1)), spill_stores=int(frame.group(2)),
+                            spill_loads=int(frame.group(3)))
+        used = re.search(r"Used (\d+) registers", line)
+        if used:
+            out[key]["registers"] = int(used.group(1))
+    return out
+
+
+def lamcalc_resources(probe, smem_vjp=None):
+    """Wait for a probe build (:func:`start_lamcalc_probe`); returns ``(the
+    loaded library, {(kernel, dtype): resources})``: each kernel's registers,
+    stack frame and spill bytes (ptxas) and resident warps an SM (the
+    occupancy calculator at its block size and, for the adjoint,
+    ``smem_vjp(itemsize)`` dynamic shared bytes)."""
+    import ctypes
+
+    proc, lib_path = probe
+    report, _ = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {lib_path}:\n{report}")
+    lib = ctypes.CDLL(str(lib_path))
+    fn = lib.lamcalc_resident_blocks
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    resources = ptxas_kernels(report)
+    for kind, name in enumerate(LAMCALC_KERNELS):
+        for dn, itemsize in (("float32", 4), ("float64", 8)):
+            smem = smem_vjp(itemsize) if smem_vjp and name == "lamcalc_vjp" else 0
+            blocks = ctypes.c_int()
+            err = fn(kind, int(dn == "float64"), smem, ctypes.byref(blocks))
+            if err != 0:
+                raise RuntimeError(f"occupancy of {name} {dn}: CUDA error {err}")
+            resources[(name, dn)]["warps"] = blocks.value * 128 // 32
+    return lib, resources
+
+
+def log_resources(what, resources, smi):
+    for (name, dn), r in sorted(resources.items()):
+        log(f"  {what} {name} {dn}: {r['registers']} registers, {r['stack']} bytes stack frame, "
+            f"{r['spill_stores']} / {r['spill_loads']} bytes spill stores / loads, "
+            f"{r['warps']} warps resident an SM (blocks of 128 threads) [{smi}]")
 
 
 def cuda_ms(fn, reps):
@@ -706,6 +809,7 @@ def phase_build(smi):
     shutil.rmtree(build.BUILD_DIR, ignore_errors=True)  # build from the sources, always
     t = time.perf_counter()
     probe = start_division_probe(build)
+    occupancy = start_lamcalc_probe(build, build.CSRC / "lamcalc.cu", "occupancy")
     reports = build.build_all(["udeb_year", "lamcalc"])
     div_instr = division_instructions(probe)
     log(f"  built {sorted(reports)} with nvcc {' '.join(build.NVCC_FLAGS)} "
@@ -713,6 +817,7 @@ def phase_build(smi):
     for name, report in sorted(reports.items()):
         for line in build.ptxas_summary(report):
             log(f"  {name}: {line} [{smi}]")
+    log_resources("resources of", lamcalc_resources(occupancy)[1], smi)
     for dn, (total, pipe) in div_instr.items():
         log(f"  an IEEE division in {dn} takes {total} instructions, {pipe} of them on the "
             f"{dn[5:]}-bit FMA pipe (SASS of the division probe)")
@@ -940,6 +1045,8 @@ def derivative_kernel_checks():
     def check_lamcalc(b, dtype, dname, fallback_every):
         rtol, atol = KERNEL_TOL[dname]
         lst, packed = lamcalc_inputs(b, dtype, seed=b + 3, fallback_every=fallback_every)
+        if b >= 512:  # the stalled secants' members beside the main path's
+            packed[:, 1:1 + len(STALL_MEMBERS)] = torch.tensor(STALL_MEMBERS, dtype=dtype).T
         tangent, g_out = seeded(packed.shape, dtype, 21), seeded((3, b), dtype, 22)
         got_t = lk.lamcalc_jvp(lst, packed, tangent)
         want_t = plain_jvp(functools.partial(lk.lamcalc_plain, lst), (packed,), (tangent,))
@@ -950,7 +1057,8 @@ def derivative_kernel_checks():
         _, iters = lk.lamcalc_plain_with_iterations(lst, packed)
         torch.cuda.synchronize()
         fallback = iters == lk.MAX_ITERATIONS - 1
-        what = f"{dname} B={b} ({int(fallback.sum())} members take the fallback)"
+        what = (f"{dname} B={b} ({int(fallback.sum())} members take the fallback; branch codes "
+                f"{sorted(lk.branch_codes(lst, packed))} reversed)")
         if bool(got_t[:, fallback].any()) or bool(got_g[:, fallback].any()):
             raise AssertionError(f"lamcalc derivatives {what}: a fallback member's is not 0")
         err_jvp = check_close(f"lamcalc_jvp {what} vs plain_jvp", got_t, want_t, rtol, atol)
@@ -990,6 +1098,99 @@ def derivative_kernel_checks():
             else:
                 raise AssertionError(f"{kernel} took {limit + 1} layers in {dname}")
     return errs
+
+
+#: the adjoint's designs held against each other and against the parent
+#: commit's kernels (its source unpacked by ``git archive`` into
+#: ``_checkout/parent``): a source, its ``-D`` flags and the adjoint's
+#: dynamic shared bytes for an item size
+AB_DESIGNS = {
+    "parent": ("_checkout/parent/rscm_tpu_torch/csrc/lamcalc.cu", (), None),
+    "tape-y": ("rscm_tpu_torch/csrc/lamcalc.cu", (), None),
+    "re-solve-y": ("rscm_tpu_torch/csrc/lamcalc.cu", ("LAMCALC_VJP_RESOLVE_Y=1",), None),
+    "shared-tape": ("rscm_tpu_torch/csrc/lamcalc.cu", ("LAMCALC_VJP_SHARED_TAPE=1",),
+                    lambda itemsize: 2 * 39 * 128 * itemsize),
+}
+
+
+def phase_lamcalc_ab(smi):
+    """The ``lamcalc`` adjoint's designs (AB_DESIGNS) in one process on one
+    card: each built with LAMCALC_OCCUPANCY (registers, stack, spills,
+    resident warps), checked against the twin and autograd at B = 512 and
+    100,000 with the stalled members and fallback members, then timed a
+    launch at GRAD_BATCHES in both dtypes in turns (parent, tape-y,
+    re-solve-y, shared-tape, then back); the forward and tangent kernels of
+    the parent and of this tree likewise."""
+    import contextlib
+    import functools
+
+    import torch
+
+    from rscm_tpu_torch.ops import build
+    from rscm_tpu_torch.ops import lamcalc_kernel as lk
+    from rscm_tpu_torch.ops.plain_grad import plain_jvp
+
+    probes = {tag: start_lamcalc_probe(build, src, tag.replace("-", "_"), defines)
+              for tag, (src, defines, _) in AB_DESIGNS.items()}
+    libs = {}
+    for tag, probe in probes.items():
+        libs[tag], resources = lamcalc_resources(probe, AB_DESIGNS[tag][2])
+        log_resources(tag, resources, smi)
+
+    build.load("lamcalc")
+    saved = build._LOADED["lamcalc"]
+
+    @contextlib.contextmanager
+    def design(tag):
+        build._LOADED["lamcalc"] = libs[tag]
+        try:
+            yield
+        finally:
+            build._LOADED["lamcalc"] = saved
+
+    for dtype in (torch.float64, torch.float32):
+        dn = str(dtype)[6:]
+        for b in (512, N_MEMBERS):
+            lst, packed = lamcalc_inputs(b, dtype, seed=b + 3, fallback_every=64)
+            packed[:, 1:1 + len(STALL_MEMBERS)] = torch.tensor(STALL_MEMBERS, dtype=dtype).T
+            g_out = seeded((3, b), dtype, 22)
+            twin = lk.lamcalc_vjp_plain(lst, packed, g_out)
+            x = packed.clone().requires_grad_(True)
+            (auto,) = torch.autograd.grad(lk.lamcalc_plain(lst, x), x, g_out)
+            for tag in AB_DESIGNS:
+                with design(tag):
+                    got = lk.lamcalc_vjp(lst, packed, g_out)
+                torch.cuda.synchronize()
+                e_twin, e_auto = (float((got - w).abs().max()) for w in (twin, auto))
+                e_stall = float((got - auto)[:, 1:1 + len(STALL_MEMBERS)].abs().max())
+                log(f"  lamcalc_vjp {tag} {dn} B={b}: max abs err {e_twin:.3e} vs the twin, "
+                    f"{e_auto:.3e} vs autograd ({e_stall:.3e} on the stalled members)")
+                if tag == "shared-tape" and e_twin != 0.0:
+                    raise AssertionError(f"lamcalc_vjp shared-tape {dn} B={b} differs from the twin")
+
+    orders = {"lamcalc": ("parent", "tape-y", "tape-y", "parent"),
+              "lamcalc_jvp": ("parent", "tape-y", "tape-y", "parent"),
+              "lamcalc_vjp": ("parent", "tape-y", "re-solve-y", "shared-tape", "shared-tape",
+                              "re-solve-y", "tape-y", "parent")}
+    for dtype in (torch.float64, torch.float32):
+        dn = str(dtype)[6:]
+        for b in GRAD_BATCHES:
+            reps = 20 if b < N_MEMBERS else 5
+            lst, packed = lamcalc_inputs(b, dtype, seed=1, fallback_every=0)
+            tangent, g_out = seeded(packed.shape, dtype, 6), seeded((3, b), dtype, 7)
+            calls = {"lamcalc": lambda: lk.lamcalc(lst, packed),
+                     "lamcalc_jvp": lambda: lk.lamcalc_jvp(lst, packed, tangent),
+                     "lamcalc_vjp": lambda: lk.lamcalc_vjp(lst, packed, g_out)}
+            for name, order in orders.items():
+                readings = {}
+                for tag in order:
+                    with design(tag):
+                        readings.setdefault(tag, []).append(
+                            kernel_device_ms(calls[name], f"{name}_kernel", reps))
+                line = ", ".join(f"{tag} {' / '.join(f'{ms:.4f}' for ms in rs)} "
+                                 f"(x{min(rs) / min(readings['parent']):.3f} of parent)"
+                                 for tag, rs in readings.items())
+                log(f"  ab {name} {dn} B={b}: ms a launch, in turns: {line} [{smi}]")
 
 
 def read_golden(name):
@@ -2547,8 +2748,8 @@ def log_bound(name, b, dn, ms, call_ms, plain_ms, other, divs, nbytes, div_instr
 def derivative_timing(smi, div_instr):
     """The four derivative kernels a launch at the gradients' batches
     (GRAD_BATCHES, n = 50), each beside its bound (in float32 at B =
-    100,000 only): ``udeb_year``'s in float64 and float32, ``lamcalc``'s
-    in float64; at B = 100,000 in float64 also beside its plain version
+    100,000 only), in float64 and float32; at B = 100,000 in float64 also
+    beside its plain version
     (``plain_jvp`` of the plain forward, or the adjoint's twin), for the
     ``kernels`` line."""
     import functools
@@ -2581,22 +2782,21 @@ def derivative_timing(smi, div_instr):
                     lambda: um.udeb_year_vjp_work(st, *primals, g_ocean, g_vec),
                     "rscm_tpu_torch/csrc/udeb_year.cu", "rscm_tpu/ops/udeb_month.py:542"),
             }
-            if dn == "float64":
-                lst, packed = lamcalc_inputs(b, dt, seed=1, fallback_every=0)
-                tangent, g_out = seeded(packed.shape, dt, 6), seeded((3, b), dt, 7)
-                runs.update({
-                    "lamcalc_jvp": (
-                        lambda: lk.lamcalc_jvp(lst, packed, tangent),
-                        lambda: plain_jvp(functools.partial(lk.lamcalc_plain, lst), (packed,),
-                                          (tangent,)),
-                        lambda: lk.lamcalc_jvp_work(lst, packed),
-                        "rscm_tpu_torch/csrc/lamcalc.cu", "rscm_tpu/ops/lamcalc_kernel.py:317"),
-                    "lamcalc_vjp": (
-                        lambda: lk.lamcalc_vjp(lst, packed, g_out),
-                        lambda: lk.lamcalc_vjp_plain(lst, packed, g_out),
-                        lambda: lk.lamcalc_vjp_work(lst, packed, g_out),
-                        "rscm_tpu_torch/csrc/lamcalc.cu", "rscm_tpu/ops/lamcalc_kernel.py:317"),
-                })
+            lst, packed = lamcalc_inputs(b, dt, seed=1, fallback_every=0)
+            tangent, g_out = seeded(packed.shape, dt, 6), seeded((3, b), dt, 7)
+            runs.update({
+                "lamcalc_jvp": (
+                    lambda: lk.lamcalc_jvp(lst, packed, tangent),
+                    lambda: plain_jvp(functools.partial(lk.lamcalc_plain, lst), (packed,),
+                                      (tangent,)),
+                    lambda: lk.lamcalc_jvp_work(lst, packed),
+                    "rscm_tpu_torch/csrc/lamcalc.cu", "rscm_tpu/ops/lamcalc_kernel.py:317"),
+                "lamcalc_vjp": (
+                    lambda: lk.lamcalc_vjp(lst, packed, g_out),
+                    lambda: lk.lamcalc_vjp_plain(lst, packed, g_out),
+                    lambda: lk.lamcalc_vjp_work(lst, packed, g_out),
+                    "rscm_tpu_torch/csrc/lamcalc.cu", "rscm_tpu/ops/lamcalc_kernel.py:317"),
+            })
             log(f"  udeb_year_jvp at B={b} {dn} n=50 runs as "
                 f"{jvp_layout(50, b, dt)}")
             for name, (kernel, plain, work, source, replaces) in runs.items():
@@ -3469,7 +3669,7 @@ PHASES = ("kernels", "main", "second", "magicc", "flagship", "scenarios", "fullm
 
 
 def main(selected):
-    unknown = set(selected) - set(PHASES)
+    unknown = set(selected) - set(PHASES) - {"ab"}
     if unknown:
         raise SystemExit(f"unknown phase(s) {sorted(unknown)}; phases: {', '.join(PHASES)}")
     run = set(selected or PHASES)
@@ -3486,6 +3686,9 @@ def main(selected):
         elif refs.pending:
             with Phase("references"):
                 refs.collect()
+        if "ab" in run:
+            with Phase("ab"):
+                phase_lamcalc_ab(smi)
         if "main" in run:
             with Phase("main"):
                 runner, params, launches, n_steps = phase_main()

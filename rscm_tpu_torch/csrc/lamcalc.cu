@@ -42,6 +42,22 @@
 namespace {
 
 constexpr int kMaxIterations = 40;
+// the iterations a member runs at most (the fixed-count loop's steps)
+constexpr int kIterations = kMaxIterations - 1;
+constexpr int kThreads = 128;
+
+// Alternatives to the adjoint's tape, measured against it on the card:
+// y = M^-1 v solved again in the reverse pass through M's sparsity instead
+// of taped by the replay, and the iterates and ratios in shared memory
+// instead of local.
+#ifndef LAMCALC_VJP_RESOLVE_Y
+#define LAMCALC_VJP_RESOLVE_Y 0
+#endif
+#ifndef LAMCALC_VJP_SHARED_TAPE
+#define LAMCALC_VJP_SHARED_TAPE 0
+#endif
+constexpr bool kTapeY = !LAMCALC_VJP_RESOLVE_Y;
+constexpr bool kSharedTape = LAMCALC_VJP_SHARED_TAPE;
 
 // Constants, in the order of _consts in ops/lamcalc_kernel.py.
 enum Const {
@@ -102,16 +118,11 @@ __device__ __forceinline__ T val(Dual<T> x) { return x.v; }
 __device__ __forceinline__ float tabs(float x) { return fabsf(x); }
 __device__ __forceinline__ double tabs(double x) { return fabs(x); }
 
-// The temperatures t = q M^-1 v of the 4x4 coupling matrix M, by cofactors;
-// y = M^-1 v, the cofactors and 1 / det M go to the adjoint.
-template <typename T, typename V>
-struct Temps {
-  V t[4], y[4], cof[4][4], inv_det;
-};
-
+// The temperatures t = q M^-1 v of the 4x4 coupling matrix M, by cofactors,
+// and y = M^-1 v (the forward's iteration; the adjoint's replay).
 template <typename T, typename V>
 __device__ __forceinline__ void temps_from(const Consts<T>& k, V q, V k_lo, V k_ns, V alpha,
-                                           V lam_o, V lam_l, Temps<T, V>& out) {
+                                           V lam_o, V lam_l, V (&y)[4], V (&t)[4]) {
   const V a_diag = k_lo * alpha + k_ns;
   const V z{T(0)};
   const V m[4][4] = {
@@ -126,28 +137,107 @@ __device__ __forceinline__ void temps_from(const Consts<T>& k, V q, V k_lo, V k_
            m[r0][c2] * (m[r1][c0] * m[r2][c1] - m[r1][c1] * m[r2][c0]);
   };
   const int others[4][3] = {{1, 2, 3}, {0, 2, 3}, {0, 1, 3}, {0, 1, 2}};
+  V cof[4][4];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const V d = det3(others[i][0], others[i][1], others[i][2], others[j][0], others[j][1],
                        others[j][2]);
-      out.cof[i][j] = ((i + j) % 2 == 0) ? d : -d;
+      cof[i][j] = ((i + j) % 2 == 0) ? d : -d;
     }
   V det{T(0)};
 #pragma unroll
-  for (int j = 0; j < 4; ++j) det = det + m[0][j] * out.cof[0][j];
-  out.inv_det = T(1) / det;
+  for (int j = 0; j < 4; ++j) det = det + m[0][j] * cof[0][j];
+  const V inv_det = T(1) / det;
   const T v[4] = {k.c[C_V0], k.c[C_V1], k.c[C_V2], k.c[C_V3]};
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     V s{T(0)};
 #pragma unroll
-    for (int j = 0; j < 4; ++j) s = s + (out.cof[j][i] * out.inv_det) * v[j];
-    out.y[i] = s;
-    out.t[i] = q * s;
+    for (int j = 0; j < 4; ++j) s = s + (cof[j][i] * inv_det) * v[j];
+    y[i] = s;
+    t[i] = q * s;
   }
 }
+
+// M by its sparsity, for the adjoint's reverse pass: with b = k_lo alpha,
+//   M = [[a0, -k_lo, -k_ns, 0], [-b, a1, 0, 0], [-k_ns, 0, a2, -k_lo], [0, 0, -b, a3]],
+// rows 1 and 3 each tie one unknown to y0 or y2, so eliminating y1 and y3
+// leaves the symmetric 2x2 system [[p, -k_ns], [-k_ns, s]] (p = a0 - b k_lo / a1,
+// s = a2 - b k_lo / a3) for M y = v and for M^T u = w alike: ~20 operations a
+// solve after three divisions, against the cofactors' ~290.  The same
+// operations in the same order as _Sparse in ops/lamcalc_kernel.py.
+template <typename T>
+struct Sparse {
+  T k_lo, k_ns, b, r1, r3, c1, c3, p, s, inv2;
+
+  __device__ __forceinline__ Sparse(const Consts<T>& k, T k_lo_, T k_ns_, T alpha, T lam_o,
+                                    T lam_l)
+      : k_lo(k_lo_), k_ns(k_ns_) {
+    b = k_lo * alpha;
+    const T a_diag = b + k_ns;
+    const T a0 = k.c[C_FGNO] * lam_o + a_diag;
+    const T a1 = k.c[C_FGNL] * lam_l + k_lo;
+    const T a2 = k.c[C_FGSO] * lam_o + a_diag;
+    const T a3 = k.c[C_FGSL] * lam_l + k_lo;
+    r1 = T(1) / a1;
+    r3 = T(1) / a3;
+    c1 = k_lo * r1;
+    c3 = k_lo * r3;
+    p = a0 - c1 * b;
+    s = a2 - c3 * b;
+    inv2 = T(1) / (p * s - k_ns * k_ns);
+  }
+
+  // y = M^-1 v
+  __device__ __forceinline__ void solve(const T (&v)[4], T (&y)[4]) const {
+    const T h0 = v[0] + c1 * v[1];
+    const T h2 = v[2] + c3 * v[3];
+    y[0] = (s * h0 + k_ns * h2) * inv2;
+    y[2] = (k_ns * h0 + p * h2) * inv2;
+    y[1] = (v[1] + b * y[0]) * r1;
+    y[3] = (v[3] + b * y[2]) * r3;
+  }
+
+  // u = M^-T w
+  __device__ __forceinline__ void solve_transposed(const T (&w)[4], T (&u)[4]) const {
+    const T g0 = w[0] + (b * r1) * w[1];
+    const T g2 = w[2] + (b * r3) * w[3];
+    u[0] = (s * g0 + k_ns * g2) * inv2;
+    u[2] = (k_ns * g0 + p * g2) * inv2;
+    u[1] = (w[1] + k_lo * u[0]) * r1;
+    u[3] = (w[3] + k_lo * u[2]) * r3;
+  }
+};
+
+// The adjoint's tape of its replay: each iteration's iterate and ratio at
+// [iteration * stride] (a thread's own local array, stride 1, or shared memory
+// laid out [iteration][thread], stride the block's threads) and each update's
+// branch code in 2 bits of two registers.
+template <typename T>
+struct IterTape {
+  T* lamo;
+  T* diff;
+  int stride;
+  T* ys;  // y = M^-1 v, 4 values an iteration, [iteration][4] a thread
+  uint64_t codes_lo = 0, codes_hi = 0;  // iterations 0-31, 32-38
+
+  __device__ __forceinline__ void record(int it, T lamo_i, T diff_i, unsigned code,
+                                         const T (&y)[4]) {
+    lamo[it * stride] = lamo_i;
+    diff[it * stride] = diff_i;
+    if constexpr (kTapeY) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) ys[4 * it + c] = y[c];
+    }
+    const uint64_t c = (uint64_t)code << (2 * (it & 31));
+    if (it < 32) codes_lo |= c; else codes_hi |= c;
+  }
+  __device__ __forceinline__ unsigned code(int it) const {
+    return (unsigned)(((it < 32) ? codes_lo : codes_hi) >> (2 * (it & 31))) & 3u;
+  }
+};
 
 // One member's iteration, on values (V = T) or dual numbers; with a tape
 // (the adjoint's replay) each iteration's iterate, ratio and update branch
@@ -156,8 +246,8 @@ __device__ __forceinline__ void temps_from(const Consts<T>& k, V q, V k_lo, V k_
 // converged and, in *converged_at, the iteration it did.
 template <typename T, typename V>
 __device__ __forceinline__ bool iterate(const Consts<T>& k, const V (&x)[R_COUNT], V& best_lam_o,
-                                        V& best_lam_l, V& best_eff, T* tape_lamo = nullptr,
-                                        T* tape_diff = nullptr, int* tape_code = nullptr,
+                                        V& best_lam_l, V& best_eff,
+                                        IterTape<T>* tape = nullptr,
                                         int* converged_at = nullptr) {
   const V ecs = x[R_ECS], q = x[R_Q], k_lo = x[R_K_LO];
   const V k_ns = x[R_K_NS], rlo = x[R_RLO], alpha = x[R_ALPHA];
@@ -172,11 +262,10 @@ __device__ __forceinline__ bool iterate(const Consts<T>& k, const V (&x)[R_COUNT
   best_lam_l = zeros;
   best_eff = zeros;
 
-  for (int it = 0; it < kMaxIterations - 1 && !found; ++it) {
+  for (int it = 0; it < kIterations && !found; ++it) {
     const V lam_l = lam + k.c[C_FRATIO] * (lam - lamo_i) / rlo;
-    Temps<T, V> tm;
-    temps_from(k, q, k_lo, k_ns, alpha, lamo_i, lam_l, tm);
-    const V* t = tm.t;
+    V y[4], t[4];
+    temps_from(k, q, k_lo, k_ns, alpha, lamo_i, lam_l, y, t);
     const V ocean_mean = (k.c[C_FGNO] * t[0] + k.c[C_FGSO] * t[2]) * k.c[C_INV_FGOSUM];
     const V land_mean = (k.c[C_FGNL] * t[1] + k.c[C_FGSL] * t[3]) * k.c[C_INV_FGLSUM];
     const V diff_i = rlo - land_mean / ocean_mean;
@@ -205,11 +294,12 @@ __device__ __forceinline__ bool iterate(const Consts<T>& k, const V (&x)[R_COUNT
     const V secant1 = secant(lamo_im1, diff_im1, small1);
     const V secant2 = secant(lamo_im2, diff_im2, small2);
     V lamo_next = (iflag == 0) ? next_step : (sign_change ? secant1 : secant2);
-    if (tape_lamo) {
-      if constexpr (sizeof(V) == sizeof(T)) {
-        tape_lamo[it] = lamo_i;
-        tape_diff[it] = diff_i;
-        tape_code[it] = iflag == 0 ? 0 : ((sign_change ? small1 : small2) ? 3 : (sign_change ? 1 : 2));
+    if constexpr (sizeof(V) == sizeof(T)) {
+      if (tape) {
+        tape->record(it, lamo_i, diff_i,
+                     iflag == 0 ? 0u
+                                : ((sign_change ? small1 : small2) ? 3u : (sign_change ? 1u : 2u)),
+                     y);
       }
     }
     if (iflag == 0) dlamo = dlamo_step;
@@ -224,7 +314,7 @@ __device__ __forceinline__ bool iterate(const Consts<T>& k, const V (&x)[R_COUNT
 }
 
 template <typename T>
-__global__ void __launch_bounds__(128) lamcalc_kernel(
+__global__ void __launch_bounds__(kThreads) lamcalc_kernel(
     const Consts<T> k, int rf_sum_zero, const T* __restrict__ in, T* __restrict__ out,
     int64_t B) {
   const int64_t m = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
@@ -241,7 +331,7 @@ __global__ void __launch_bounds__(128) lamcalc_kernel(
 }
 
 template <typename T>
-__global__ void __launch_bounds__(128) lamcalc_jvp_kernel(
+__global__ void __launch_bounds__(kThreads) lamcalc_jvp_kernel(
     const Consts<T> k, int rf_sum_zero, const T* __restrict__ in, const T* __restrict__ t_in,
     T* __restrict__ t_out, int64_t B) {
   const int64_t m = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
@@ -258,9 +348,13 @@ __global__ void __launch_bounds__(128) lamcalc_jvp_kernel(
 }
 
 // The adjoint (the twin of lamcalc_vjp_plain in ops/lamcalc_kernel.py, the
-// same operations in the same order).
+// same operations in the same order).  The replay is the forward's own
+// iteration with a tape; the reverse pass holds the cotangents of
+// iterations j + 1, j, j - 1 and j - 2 (all an update reaches) and the
+// tape's values at j, j - 1 and j - 2 in registers, shifting them down an
+// iteration a step, and reverses the temperatures through M's sparsity.
 template <typename T>
-__global__ void __launch_bounds__(128) lamcalc_vjp_kernel(
+__global__ void __launch_bounds__(kThreads) lamcalc_vjp_kernel(
     const Consts<T> k, int rf_sum_zero, const T* __restrict__ in, const T* __restrict__ g_out,
     T* __restrict__ g_in, int64_t B) {
   const int64_t m = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
@@ -268,12 +362,25 @@ __global__ void __launch_bounds__(128) lamcalc_vjp_kernel(
   T x[R_COUNT];
 #pragma unroll
   for (int r = 0; r < R_COUNT; ++r) x[r] = in[r * B + m];
-  T lamo[kMaxIterations], diff[kMaxIterations];
-  int code[kMaxIterations];
+  IterTape<T> tape;
+#if LAMCALC_VJP_SHARED_TAPE
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  tape.lamo = reinterpret_cast<T*>(smem_raw) + threadIdx.x;
+  tape.diff = tape.lamo + kIterations * kThreads;
+  tape.stride = kThreads;
+#else
+  T lamo_tape[kIterations], diff_tape[kIterations];
+  tape.lamo = lamo_tape;
+  tape.diff = diff_tape;
+  tape.stride = 1;
+#endif
+#if !LAMCALC_VJP_RESOLVE_Y
+  T y_tape[4 * kIterations];
+  tape.ys = y_tape;
+#endif
   int kstar = 0;
   T best_lam_o, best_lam_l, best_eff;
-  const bool found = iterate<T, T>(k, x, best_lam_o, best_lam_l, best_eff, lamo, diff, code,
-                                   &kstar);
+  const bool found = iterate<T, T>(k, x, best_lam_o, best_lam_l, best_eff, &tape, &kstar);
   T bar[R_COUNT];
 #pragma unroll
   for (int r = 0; r < R_COUNT; ++r) bar[r] = T(0);
@@ -282,46 +389,59 @@ __global__ void __launch_bounds__(128) lamcalc_vjp_kernel(
     const T k_ns = x[R_K_NS], rlo = x[R_RLO], alpha = x[R_ALPHA];
     const T fgno = k.c[C_FGNO], fgnl = k.c[C_FGNL], fgso = k.c[C_FGSO], fgsl = k.c[C_FGSL];
     const T fg[4] = {fgno, fgnl, fgso, fgsl};
+    const T v[4] = {k.c[C_V0], k.c[C_V1], k.c[C_V2], k.c[C_V3]};
     const T lam = q / ecs;
     T lam_bar = T(0);
-    T lamo_bar[kMaxIterations], diff_bar[kMaxIterations];
-    for (int j = 0; j <= kstar; ++j) lamo_bar[j] = diff_bar[j] = T(0);
+    // lamo's cotangent at j + 1, j, j - 1, j - 2; the ratio's at j, j - 1, j - 2
+    T lb_next = T(0), lb0 = T(0), lb1 = T(0), lb2 = T(0);
+    T db0 = T(0), db1 = T(0), db2 = T(0);
+    auto lamo_at = [&](int j) { return j >= 0 ? tape.lamo[j * tape.stride] : T(0); };
+    auto diff_at = [&](int j) { return j >= 0 ? tape.diff[j * tape.stride] : T(0); };
+    T lo0 = lamo_at(kstar), lo1 = lamo_at(kstar - 1), lo2 = lamo_at(kstar - 2);
+    T df0 = diff_at(kstar), df1 = diff_at(kstar - 1), df2 = diff_at(kstar - 2);
     for (int j = kstar; j >= 0; --j) {
-      const T lamo_i = lamo[j], diff_i = diff[j];
+      const T lamo_i = lo0, diff_i = df0;
       if (j < kstar) {
         // the update that made lamo_{j+1}: each branch adds lamo_i once
-        const T big_l = lamo_bar[j + 1];
-        lamo_bar[j] = lamo_bar[j] + big_l;
-        if (code[j] == 1 || code[j] == 2) {
-          const int back = j - code[j];
-          const T den = diff_i - diff[back];
-          const T r = lamo_i - lamo[back];
+        const T big_l = lb_next;
+        lb0 = lb0 + big_l;
+        const unsigned code = tape.code(j);
+        if (code == 1u || code == 2u) {
+          const bool one = code == 1u;
+          const T den = diff_i - (one ? df1 : df2);
+          const T r = lamo_i - (one ? lo1 : lo2);
           const T qv = diff_i * r / den;
           const T p_bar = -big_l / den;
           const T den_bar = -(p_bar * qv);
-          diff_bar[j] = diff_bar[j] + p_bar * r;
+          db0 = db0 + p_bar * r;
           const T r_bar = p_bar * diff_i;
-          lamo_bar[j] = lamo_bar[j] + r_bar;
-          lamo_bar[back] = lamo_bar[back] - r_bar;
-          diff_bar[j] = diff_bar[j] + den_bar;
-          diff_bar[back] = diff_bar[back] - den_bar;
+          lb0 = lb0 + r_bar;
+          if (one) lb1 = lb1 - r_bar; else lb2 = lb2 - r_bar;
+          db0 = db0 + den_bar;
+          if (one) db1 = db1 - den_bar; else db2 = db2 - den_bar;
         }
       }
       // the iteration's ratio, efficacy and land feedback
       T ll_bar = T(0), eff_bar = T(0);
       if (j == kstar) {
-        lamo_bar[j] = lamo_bar[j] + g_out[0 * B + m];
+        lb0 = lb0 + g_out[0 * B + m];
         ll_bar = g_out[1 * B + m];
         if (!rf_sum_zero) eff_bar = g_out[2 * B + m];
       }
       const T lam_l = lam + k.c[C_FRATIO] * (lam - lamo_i) / rlo;
-      Temps<T, T> tm;
-      temps_from(k, q, k_lo, k_ns, alpha, lamo_i, lam_l, tm);
-      const T* t = tm.t;
-      const T* y = tm.y;
+      const Sparse<T> sp(k, k_lo, k_ns, alpha, lamo_i, lam_l);
+      T y[4], t[4];
+      if constexpr (kTapeY) {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) y[c] = tape.ys[4 * j + c];
+      } else {
+        sp.solve(v, y);
+      }
+#pragma unroll
+      for (int c = 0; c < 4; ++c) t[c] = q * y[c];
       const T om = (fgno * t[0] + fgso * t[2]) * k.c[C_INV_FGOSUM];
       const T lm = (fgnl * t[1] + fgsl * t[3]) * k.c[C_INV_FGLSUM];
-      const T db = diff_bar[j];
+      const T db = db0;
       bar[R_RLO] += db;
       const T lm_bar = -db / om;
       const T om_bar = -(lm_bar * (lm / om));
@@ -341,15 +461,10 @@ __global__ void __launch_bounds__(128) lamcalc_vjp_kernel(
       T yb[4], u[4];
 #pragma unroll
       for (int c = 0; c < 4; ++c) yb[c] = t_bar[c] * q;
-#pragma unroll
-      for (int a = 0; a < 4; ++a) {
-        T acc = T(0);
-#pragma unroll
-        for (int c = 0; c < 4; ++c) acc = acc + (tm.cof[a][c] * tm.inv_det) * yb[c];
-        u[a] = acc;
-      }
+      sp.solve_transposed(yb, u);
+      // M's cotangent -(u y^T) at its non-zero entries
       auto m_bar = [&](int a, int b) -> T { return -(u[a] * y[b]); };
-      lamo_bar[j] = lamo_bar[j] + m_bar(0, 0) * fgno;
+      lb0 = lb0 + m_bar(0, 0) * fgno;
       T ad_bar = m_bar(0, 0);
       bar[R_K_LO] += -m_bar(0, 1);
       bar[R_K_NS] += -m_bar(0, 2);
@@ -358,7 +473,7 @@ __global__ void __launch_bounds__(128) lamcalc_vjp_kernel(
       ll_bar = ll_bar + m_bar(1, 1) * fgnl;
       bar[R_K_LO] += m_bar(1, 1);
       bar[R_K_NS] += -m_bar(2, 0);
-      lamo_bar[j] = lamo_bar[j] + m_bar(2, 2) * fgso;
+      lb0 = lb0 + m_bar(2, 2) * fgso;
       ad_bar = ad_bar + m_bar(2, 2);
       bar[R_K_LO] += -m_bar(2, 3);
       bar[R_K_LO] += -(m_bar(3, 2) * alpha);
@@ -375,9 +490,23 @@ __global__ void __launch_bounds__(128) lamcalc_vjp_kernel(
       bar[R_RLO] += -(w_bar * (w / rlo));
       const T dl_bar = w_bar * k.c[C_FRATIO];
       lam_bar = lam_bar + dl_bar;
-      lamo_bar[j] = lamo_bar[j] - dl_bar;
+      lb0 = lb0 - dl_bar;
+      // down one iteration
+      lb_next = lb0;
+      lb0 = lb1;
+      lb1 = lb2;
+      lb2 = T(0);
+      db0 = db1;
+      db1 = db2;
+      db2 = T(0);
+      lo0 = lo1;
+      lo1 = lo2;
+      lo2 = lamo_at(j - 3);
+      df0 = df1;
+      df1 = df2;
+      df2 = diff_at(j - 3);
     }
-    lam_bar = lam_bar + lamo_bar[0];
+    lam_bar = lam_bar + lb_next;
     const T lam_q = lam_bar / ecs;
     bar[R_Q] += lam_q;
     bar[R_ECS] += -(lam_q * lam);
@@ -392,8 +521,6 @@ int prepare(const T* consts, int n_consts, Consts<T>* k) {
   for (int i = 0; i < C_COUNT; ++i) k->c[i] = consts[i];
   return 0;
 }
-
-constexpr int kThreads = 128;
 
 inline unsigned blocks_of(long long B) { return (unsigned)((B + kThreads - 1) / kThreads); }
 
@@ -425,7 +552,13 @@ int launch_vjp(const T* consts, int n_consts, int rf_sum_zero, const T* in, cons
   Consts<T> k;
   if (prepare(consts, n_consts, &k) != 0) return (int)cudaErrorInvalidValue;
   if (B <= 0) return 0;
-  lamcalc_vjp_kernel<T><<<blocks_of(B), kThreads, 0, (cudaStream_t)stream>>>(
+  const int smem = kSharedTape ? (int)(2 * kIterations * kThreads * sizeof(T)) : 0;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute((const void*)lamcalc_vjp_kernel<T>,
+                                                 cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  lamcalc_vjp_kernel<T><<<blocks_of(B), kThreads, smem, (cudaStream_t)stream>>>(
       k, rf_sum_zero, in, g_out, g_in, B);
   return (int)cudaGetLastError();
 }

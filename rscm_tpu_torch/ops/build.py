@@ -25,7 +25,7 @@ import tempfile
 from pathlib import Path
 from typing import Dict, Iterable
 
-__all__ = ["NVCC_FLAGS", "build_all", "load", "ptxas_summary"]
+__all__ = ["NVCC_FLAGS", "build_all", "function", "load", "ptxas_summary"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
@@ -37,6 +37,7 @@ NVCC_FLAGS = (
 )
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
+_FUNCTIONS: Dict[tuple, ctypes._CFuncPtr] = {}
 
 
 def _nvcc() -> str:
@@ -97,6 +98,20 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(_target(name)))
         _LOADED[name] = lib
     return lib
+
+
+def function(name: str, symbol: str, argtypes) -> ctypes._CFuncPtr:
+    """``symbol`` of kernel ``name``'s library (:func:`load`), its ``ctypes``
+    signature (``argtypes``, an ``int`` result) set on first use."""
+    lib = load(name)
+    key = (lib, symbol, tuple(argtypes))
+    fn = _FUNCTIONS.get(key)
+    if fn is None:
+        fn = getattr(lib, symbol)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+        _FUNCTIONS[key] = fn
+    return fn
 
 
 def ptxas_summary(report: str) -> list:

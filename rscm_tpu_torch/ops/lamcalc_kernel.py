@@ -50,6 +50,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from . import build
 from .plain_grad import plain_jvp
 from .work import count_arithmetic, note_launch
 
@@ -66,6 +67,7 @@ __all__ = [
     "lamcalc_vjp",
     "lamcalc_vjp_plain",
     "lamcalc_vjp_work",
+    "branch_codes",
 ]
 
 #: packed per-member scalar input rows, in order
@@ -110,9 +112,9 @@ def lam_static(params, fallback) -> LamStatic:
 
 
 def _temps(st: LamStatic, q, k_lo, k_ns, alpha, lam_o, lam_l):
-    """The four box temperatures ``t = q M^-1 v`` by the cofactor inverse of
-    the coupling matrix ``M``, and ``(y = M^-1 v, cofactors, 1 / det M)``
-    for the adjoint."""
+    """``y = M^-1 v`` by the cofactor inverse of the coupling matrix ``M``
+    and the four box temperatures ``t = q y`` (the iteration's own; the
+    adjoint reverses them through :class:`_Sparse`)."""
     fgno, fgnl, fgso, fgsl = st.fg
     q0, q1, q2, q3 = st.qfrac
     v = (fgno * q0, fgnl * q1, fgso * q2, fgsl * q3)
@@ -143,7 +145,38 @@ def _temps(st: LamStatic, q, k_lo, k_ns, alpha, lam_o, lam_l):
     det = sum(m[0][j] * cof[0][j] for j in range(4))
     inv_det = 1.0 / det
     y = [sum((cof[j][i] * inv_det) * v[j] for j in range(4)) for i in range(4)]
-    return [q * y[i] for i in range(4)], y, cof, inv_det
+    return y, [q * y[i] for i in range(4)]
+
+
+class _Sparse:
+    """``M^T`` by ``M``'s sparsity, for the adjoint (``Sparse`` in
+    ``csrc/lamcalc.cu``, its operations in its order).  With ``b = k_lo
+    alpha``, ``M = [[a0, -k_lo, -k_ns, 0], [-b, a1, 0, 0], [-k_ns, 0, a2,
+    -k_lo], [0, 0, -b, a3]]``: rows 1 and 3 of ``M^T u = w`` each tie one
+    unknown to ``u0`` or ``u2``, so eliminating ``u1`` and ``u3`` leaves
+    the symmetric 2x2 system ``[[p, -k_ns], [-k_ns, s]]``."""
+
+    def __init__(self, st: LamStatic, k_lo, k_ns, alpha, lam_o, lam_l):
+        fgno, fgnl, fgso, fgsl = st.fg
+        self.k_lo, self.k_ns = k_lo, k_ns
+        self.b = b = k_lo * alpha
+        a_diag = b + k_ns
+        a0 = fgno * lam_o + a_diag
+        a1 = fgnl * lam_l + k_lo
+        a2 = fgso * lam_o + a_diag
+        a3 = fgsl * lam_l + k_lo
+        self.r1, self.r3 = 1.0 / a1, 1.0 / a3
+        self.p = a0 - (k_lo * self.r1) * b
+        self.s = a2 - (k_lo * self.r3) * b
+        self.inv2 = 1.0 / (self.p * self.s - k_ns * k_ns)
+
+    def solve_transposed(self, w):
+        """``u = M^-T w``."""
+        g0 = w[0] + (self.b * self.r1) * w[1]
+        g2 = w[2] + (self.b * self.r3) * w[3]
+        u0 = (self.s * g0 + self.k_ns * g2) * self.inv2
+        u2 = (self.k_ns * g0 + self.p * g2) * self.inv2
+        return [u0, (w[1] + self.k_lo * u0) * self.r1, u2, (w[3] + self.k_lo * u2) * self.r3]
 
 
 def lamcalc_plain_with_iterations(st: LamStatic, packed, tape=None):
@@ -176,7 +209,7 @@ def lamcalc_plain_with_iterations(st: LamStatic, packed, tape=None):
             break
         iterations = iterations + (~found).to(torch.int32)
         lam_l = lam + fratio * (lam - lamo_i) / rlo
-        t = _temps(st, q, k_lo, k_ns, alpha, lamo_i, lam_l)[0]
+        y, t = _temps(st, q, k_lo, k_ns, alpha, lamo_i, lam_l)
         ocean_mean = (fgno * t[0] + fgso * t[2]) / fgosum
         land_mean = (fgnl * t[1] + fgsl * t[3]) / fglsum
         diff_i = rlo - land_mean / ocean_mean
@@ -213,8 +246,8 @@ def lamcalc_plain_with_iterations(st: LamStatic, packed, tape=None):
         if tape is not None:
             tape.append({
                 "lamo": lamo_i, "lamo_im1": lamo_im1, "lamo_im2": lamo_im2, "diff": diff_i,
-                "diff_im1": diff_im1, "diff_im2": diff_im2, "lam_l": lam_l, "step": iflag == 0,
-                "sign_change": sign_change,
+                "diff_im1": diff_im1, "diff_im2": diff_im2, "lam_l": lam_l, "y": y,
+                "step": iflag == 0, "sign_change": sign_change,
             })
         dlamo = torch.where(iflag == 0, dlamo_step, dlamo)
         lamo_next = torch.where(found, lamo_i, lamo_next)
@@ -234,6 +267,27 @@ def lamcalc_plain(st: LamStatic, packed):
     (twin of the JAX package's ``_ref_jnp``, whose fixed-count loop it
     leaves once every member has converged)."""
     return lamcalc_plain_with_iterations(st, packed)[0]
+
+
+def branch_codes(st: LamStatic, packed) -> set:
+    """The branch codes of the updates the adjoint reverses (those before
+    each converging member's last iteration) on ``packed``: 0 a step, 1 and
+    2 the secants through the previous iterate and the one before, 3 a
+    secant whose denominator vanished."""
+    tape = []
+    _, iterations = lamcalc_plain_with_iterations(st, packed, tape=tape)
+    reversed_ = iterations < MAX_ITERATIONS - 1
+    codes = set()
+    for j, rec in enumerate(tape):
+        upd = reversed_ & (j < iterations - 1)
+        back = torch.where(rec["sign_change"], rec["diff_im1"], rec["diff_im2"])
+        stall = (rec["diff"] - back).abs() < 1e-30
+        for code, on in ((0, rec["step"]), (1, ~rec["step"] & ~stall & rec["sign_change"]),
+                         (2, ~rec["step"] & ~stall & ~rec["sign_change"]),
+                         (3, ~rec["step"] & stall)):
+            if bool((upd & on).any()):
+                codes.add(code)
+    return codes
 
 
 def lamcalc_vjp_plain(st: LamStatic, packed, g_out):
@@ -305,8 +359,9 @@ def lamcalc_vjp_plain(st: LamStatic, packed, g_out):
             lamo_bar[j] = lamo_bar[j] + torch.where(seed, g_lo, zero)
             ll_bar = torch.where(seed, g_ll, zero)
             eff_bar = zero if st.rf_sum_zero else torch.where(seed, g_eff, zero)
-            lam_l = rec["lam_l"]
-            t, y, cof, inv_det = _temps(st, q, k_lo, k_ns, alpha, lamo_i, lam_l)
+            sp = _Sparse(st, k_lo, k_ns, alpha, lamo_i, rec["lam_l"])
+            y = rec["y"]
+            t = [q * y[k] for k in range(4)]
             om = (fgno * t[0] + fgso * t[2]) / fgosum
             lm = (fgnl * t[1] + fgsl * t[3]) / fglsum
             db = torch.where(act, diff_bar[j], zero)
@@ -324,13 +379,7 @@ def lamcalc_vjp_plain(st: LamStatic, packed, g_out):
             t_bar[0] = t_bar[0] + s_o * fgno
             t_bar[2] = t_bar[2] + s_o * fgso
             add("q", ((t_bar[0] * y[0] + t_bar[1] * y[1]) + t_bar[2] * y[2]) + t_bar[3] * y[3])
-            yb = [t_bar[k] * q for k in range(4)]
-            u = []
-            for a in range(4):
-                acc = zero
-                for c in range(4):
-                    acc = acc + (cof[a][c] * inv_det) * yb[c]
-                u.append(acc)
+            u = sp.solve_transposed([t_bar[k] * q for k in range(4)])
 
             def m_bar(a, b):
                 return -(u[a] * y[b])
@@ -518,8 +567,6 @@ def lamcalc_vjp(st: LamStatic, packed, g_out):
 def _launch(kernel: str, st: LamStatic, packed, out, *inputs):
     """Launch ``<kernel>_<dtype>`` of ``csrc/lamcalc.cu`` on ``inputs``
     (``(rows, B)`` CUDA tensors like ``packed``) into ``out``."""
-    from . import build
-
     if packed.dtype not in _SUFFIX:
         raise TypeError(f"{kernel}: the kernel takes float32 or float64, not {packed.dtype}")
     for x in inputs:
@@ -528,10 +575,10 @@ def _launch(kernel: str, st: LamStatic, packed, out, *inputs):
             raise ValueError(f"{kernel}: inputs must be contiguous {packed.dtype} (rows, "
                              f"{packed.shape[1]}) on {packed.device}, got {tuple(x.shape)}")
     suffix = _SUFFIX[packed.dtype]
-    fn = getattr(build.load("lamcalc"), f"{kernel}_{suffix}")
     p = ctypes.c_void_p
-    fn.argtypes = [p, ctypes.c_int, ctypes.c_int, *([p] * len(inputs)), p, ctypes.c_longlong, p]
-    fn.restype = ctypes.c_int
+    fn = build.function("lamcalc", f"{kernel}_{suffix}",
+                        [p, ctypes.c_int, ctypes.c_int, *([p] * len(inputs)), p, ctypes.c_longlong,
+                         p])
     consts = _consts(st, np.dtype(np.float32 if suffix == "f32" else np.float64))
     with torch.cuda.device(packed.device):
         stream = torch.cuda.current_stream().cuda_stream

@@ -76,6 +76,7 @@ import numpy as np
 import torch
 
 from ..utils.linear_algebra import thomas_solve_assoc
+from . import build
 from .plain_grad import plain_jvp
 from .work import count_arithmetic, note_launch
 
@@ -894,19 +895,10 @@ def _check_kernel_inputs(kernel: str, st: UdebStatic, dtype, **tensors):
             raise ValueError(f"{kernel}: {name} must be contiguous")
 
 
-def _lib_fn(name: str, argtypes):
-    from . import build
-
-    fn = getattr(build.load("udeb_year"), name)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
-    return fn
-
-
 def _launch(kernel: str, suffix: str, argtypes, device, *args):
     """Launch ``<kernel>_<suffix>`` on ``device``'s current stream (the
     stream handle goes last); raises with the CUDA error it returns."""
-    fn = _lib_fn(f"{kernel}_{suffix}", [*argtypes, ctypes.c_void_p])
+    fn = build.function("udeb_year", f"{kernel}_{suffix}", [*argtypes, ctypes.c_void_p])
     with torch.cuda.device(device):
         err = fn(*args, torch.cuda.current_stream().cuda_stream)
     if err != 0:
@@ -923,7 +915,7 @@ def max_kernel_layers(dtype, kernel: str = "udeb_year") -> int:
     for the adjoint; ``udeb_year_jvp_shared`` gives the most, 212 / 424, at
     which the tangent kernel may keep its c' in shared memory
     (:func:`kernel_config`).  Builds the kernels on first use."""
-    return int(_lib_fn(f"{kernel}_max_layers_{_SUFFIX[dtype]}", [])())
+    return int(build.function("udeb_year", f"{kernel}_max_layers_{_SUFFIX[dtype]}", [])())
 
 
 def kernel_config(n: int, dtype, device=None, kernel: str = "udeb_year", b: int = 0,
@@ -940,9 +932,9 @@ def kernel_config(n: int, dtype, device=None, kernel: str = "udeb_year", b: int 
     :func:`max_kernel_layers`."""
     _check_layers(n, dtype, kernel)
     p, ll = ctypes.POINTER, ctypes.c_longlong
-    fn = _lib_fn(f"udeb_year_config_{_SUFFIX[dtype]}",
-                 [ctypes.c_int, ctypes.c_int, ctypes.c_int, ll, p(ctypes.c_int),
-                  p(ctypes.c_int), p(ll), p(ll)])
+    fn = build.function("udeb_year", f"udeb_year_config_{_SUFFIX[dtype]}",
+                        [ctypes.c_int, ctypes.c_int, ctypes.c_int, ll, p(ctypes.c_int),
+                         p(ctypes.c_int), p(ll), p(ll)])
     threads, blocks, smem, scratch = ctypes.c_int(), ctypes.c_int(), ll(), ll()
     with torch.cuda.device(device if device is not None else torch.cuda.current_device()):
         err = fn(_KINDS[kernel], n, steps, b, ctypes.byref(threads), ctypes.byref(blocks),

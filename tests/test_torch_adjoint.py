@@ -31,7 +31,7 @@ from rscm_tpu.ops import udeb_month as jax_udeb
 from rscm_tpu_torch.magicc import ClimateUDEB
 from rscm_tpu_torch.magicc.climate.lamcalc import LamcalcParams
 from rscm_tpu_torch.ops import lamcalc_kernel, udeb_month
-from test_torch_kernels import lamcalc_setup, udeb_inputs
+from test_torch_kernels import STALL_MEMBERS, lamcalc_setup, udeb_inputs
 
 TOL = 1e-12
 B = 6
@@ -280,12 +280,18 @@ def test_functions_on_cpu_route_backward_to_the_twins(monkeypatch):
     assert x.grad is not None and all(t.grad is not None for t in xs)
 
 
-@pytest.mark.parametrize("case", ["fallback", "no-fallback", "rf-sum-zero"])
+@pytest.mark.parametrize("case", ["fallback", "no-fallback", "rf-sum-zero", "secant-stall"])
 def test_lamcalc_adjoint_twin_matches_jax_vjp_and_autograd(case):
+    """Over every branch the adjoint reverses (steps, both secants and, in
+    the stalled members, a secant whose denominator vanished), with members
+    that stop after different iterations, fallback members and a zero CO2
+    forcing pattern."""
     b = 12
     kwargs, fallback, packed = lamcalc_setup(b=b, seed=6)
     if case != "fallback":
         packed[4] = kwargs["rlo"]
+    if case == "secant-stall":
+        packed[:, :len(STALL_MEMBERS)] = np.array(STALL_MEMBERS).T
     st = lamcalc_kernel.lam_static(LamcalcParams(**kwargs), fallback)
     if case == "rf-sum-zero":
         st = lamcalc_kernel.LamStatic(fg=st.fg, qfrac=st.qfrac, rf_sum_zero=True,
@@ -294,6 +300,8 @@ def test_lamcalc_adjoint_twin_matches_jax_vjp_and_autograd(case):
     converging = iterations[iterations < lamcalc_kernel.MAX_ITERATIONS - 1]
     assert len(set(converging.tolist())) > 1  # members stop after different iterations
     assert bool((iterations == lamcalc_kernel.MAX_ITERATIONS - 1).any()) == (case == "fallback")
+    assert lamcalc_kernel.branch_codes(st, torch.tensor(packed)) == (
+        {0, 1, 2, 3} if case == "secant-stall" else {0, 1, 2})
 
     jax_st = jax_lamcalc.LamStatic(fg=st.fg, qfrac=st.qfrac, rf_sum_zero=st.rf_sum_zero,
                                    fallback=st.fallback)
@@ -308,6 +316,30 @@ def test_lamcalc_adjoint_twin_matches_jax_vjp_and_autograd(case):
     np.testing.assert_allclose(got.numpy(), want_torch.numpy(), rtol=TOL, atol=TOL)
     fallen = (iterations == lamcalc_kernel.MAX_ITERATIONS - 1).numpy()
     assert np.all(got.numpy()[:, fallen] == 0.0)
+
+
+def test_lamcalc_adjoint_twin_computes_the_cofactors_only_in_its_replay(monkeypatch):
+    """The twin's reverse pass solves through M's sparsity (``_Sparse``):
+    the cofactor inverse (``_temps``) runs once an iteration of its replay,
+    as often as in the forward, and never in the reverse."""
+    calls = []
+    temps = lamcalc_kernel._temps
+
+    def counted(*args):
+        calls.append(1)
+        return temps(*args)
+
+    monkeypatch.setattr(lamcalc_kernel, "_temps", counted)
+    kwargs, fallback, packed = lamcalc_setup(b=12, seed=6)
+    packed[4] = kwargs["rlo"]  # every member converges: the loop stops at the slowest
+    st = lamcalc_kernel.lam_static(LamcalcParams(**kwargs), fallback)
+    x = torch.tensor(packed)
+    _, iterations = lamcalc_kernel.lamcalc_plain_with_iterations(st, x)
+    forward = len(calls)
+    assert forward == int(iterations.max()) < lamcalc_kernel.MAX_ITERATIONS - 1
+    lamcalc_kernel.lamcalc_vjp_plain(st, x, torch.tensor(np.random.default_rng(3).normal(
+        size=(3, 12))))
+    assert len(calls) == 2 * forward
 
 
 def test_tangent_work_counts_the_dual_arithmetic_a_tangent_kernel_performs():

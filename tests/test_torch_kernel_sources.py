@@ -32,7 +32,7 @@ from rscm_tpu_torch.magicc import ClimateUDEB
 from rscm_tpu_torch.magicc.climate.lamcalc import LamcalcParams
 from rscm_tpu_torch.ops import build, lamcalc_kernel, udeb_month
 from rscm_tpu_torch.ops.plain_grad import plain_jvp
-from test_torch_kernels import lamcalc_setup, udeb_inputs
+from test_torch_kernels import STALL_MEMBERS, lamcalc_setup, udeb_inputs
 
 TOL = 1e-12
 HERE = Path(__file__).resolve().parent
@@ -189,3 +189,24 @@ def test_lamcalc_kernels_on_host_match_their_plain_versions(on_host, with_fallba
     close([got_g], [lamcalc_kernel.lamcalc_vjp_plain(st, x, g_out)], "vjp")
     if with_fallback:
         assert np.all(got_t.numpy()[:, ::4] == 0.0) and np.all(got_g.numpy()[:, ::4] == 0.0)
+
+
+def test_lamcalc_adjoint_on_host_reverses_every_branch(on_host):
+    """The adjoint kernel against its twin over every branch it reverses
+    (steps, both secants, the stalled members' vanished denominator), on
+    37 members: a ragged warp whose members stop after different
+    iterations, with fallback members."""
+    b = 37
+    kwargs, fallback, packed = lamcalc_setup(b=b, seed=11)
+    packed[:, 1:1 + len(STALL_MEMBERS)] = np.array(STALL_MEMBERS).T
+    st = lamcalc_kernel.lam_static(LamcalcParams(**kwargs), fallback)
+    x = torch.tensor(packed)
+    _, iterations = lamcalc_kernel.lamcalc_plain_with_iterations(st, x)
+    assert lamcalc_kernel.branch_codes(st, x) == {0, 1, 2, 3}
+    assert len(set(iterations[32:].tolist())) > 1
+    g_out = torch.tensor(np.random.default_rng(12).normal(size=(3, b)))
+    got = torch.empty_like(x)
+    lamcalc_kernel._launch("lamcalc_vjp", st, x, got, x, g_out)
+    close([got], [lamcalc_kernel.lamcalc_vjp_plain(st, x, g_out)], "vjp")
+    fallen = (iterations == lamcalc_kernel.MAX_ITERATIONS - 1).numpy()
+    assert fallen.any() and np.all(got.numpy()[:, fallen] == 0.0)

@@ -162,6 +162,17 @@ def lamcalc_setup(b=B, seed=0):
     return kwargs, fallback, packed
 
 
+#: (6,) inputs of members whose first iterate lies on the land/ocean warming
+#: ratio's pole (``rlo`` set to its last bits): their secants stall on one
+#: iterate until a denominator vanishes (branch code 3), and they converge
+#: at iteration 10 under ``lamcalc_setup``'s box fractions in float64
+STALL_MEMBERS = [
+    [1.2633767549784332, 7.437325381688504, 0.1080402269320665, 0.6036191807589846, rlo,
+     0.6940602750934692]
+    for rlo in (0.21437001022807176, 0.21437001022807184)
+]
+
+
 def test_lamcalc_plain_matches_ref_jnp_with_fallback_members():
     kwargs, fallback, packed = lamcalc_setup()
     st = lamcalc_kernel.lam_static(LamcalcParams(**kwargs), fallback)
