@@ -19,12 +19,15 @@
 // takes the fallback gets zero.
 // - The tangent kernel runs the iteration below on dual numbers (value,
 //   tangent); convergence, the freeze and every branch decide on the value.
-// - The adjoint kernel replays the iteration with the same code, keeping each
-//   iterate, its ratio and its update's branch in local memory, then reverses
-//   the active iterations: the update (step or secant), the ratio and the
-//   temperatures t = q M^-1 v, whose matrix cotangent is -(M^-T y_bar) y^T.
-//   Its plain version, lamcalc_vjp_plain, performs the same operations in
-//   the same order.
+// - The adjoint kernel replays the iteration with the same code, taping each
+//   iterate, its ratio and y = M^-1 v in local memory and its update's
+//   branch in 2 bits of a register, then reverses the active iterations: the
+//   update (step or secant), the ratio and the temperatures t = q y, whose
+//   matrix cotangent is -(M^-T y_bar) y^T, with M^-T y_bar solved through M's
+//   sparsity (Sparse) and not the cofactors.  y is taped, not solved again:
+//   at a pole of the warming ratio the ocean mean cancels, and only the
+//   forward's own y gives the forward's ratio back.  Its plain version,
+//   lamcalc_vjp_plain, performs the same operations in the same order.
 //
 // Layout: member-minor, input (6, B) = ecs, q, k_lo, k_ns, rlo, alpha;
 // output (3, B) = lam_o, lam_l, efficacy (the tangent kernel: its tangent;
@@ -32,9 +35,10 @@
 //
 // Bound on an H100: arithmetic (~350 floating-point operations an iteration,
 // 6-7 iterations a typical member, against 72 bytes a member in float64; the
-// tangent kernel ~2.6x that, the adjoint ~2.4x where the function needs ~1.4x,
-// one forward and the adjoint).  At a gradient's batch (1-512
-// members) a launch is one member's serial iterations: latency.
+// tangent kernel ~2.6x that, the adjoint ~1.7x where the function needs ~1.4x,
+// one forward and the adjoint: the replay and the reverse pass's ratio and
+// solve for u are the kernel's own).  At a gradient's batch (1-512 members) a
+// launch is one member's serial iterations: latency.
 
 #include <cuda_runtime.h>
 #include <stdint.h>

@@ -37,7 +37,9 @@ NVCC_FLAGS = (
 )
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
-_FUNCTIONS: Dict[tuple, ctypes._CFuncPtr] = {}
+#: (id of the library, symbol, argtypes) -> (the library, kept so that its id
+#: stays its own, and the function)
+_FUNCTIONS: Dict[tuple, tuple] = {}
 
 
 def _nvcc() -> str:
@@ -104,14 +106,13 @@ def function(name: str, symbol: str, argtypes) -> ctypes._CFuncPtr:
     """``symbol`` of kernel ``name``'s library (:func:`load`), its ``ctypes``
     signature (``argtypes``, an ``int`` result) set on first use."""
     lib = load(name)
-    key = (lib, symbol, tuple(argtypes))
-    fn = _FUNCTIONS.get(key)
-    if fn is None:
+    key = (id(lib), symbol, tuple(argtypes))
+    if key not in _FUNCTIONS:
         fn = getattr(lib, symbol)
         fn.argtypes = list(argtypes)
         fn.restype = ctypes.c_int
-        _FUNCTIONS[key] = fn
-    return fn
+        _FUNCTIONS[key] = (lib, fn)
+    return _FUNCTIONS[key][1]
 
 
 def ptxas_summary(report: str) -> list:

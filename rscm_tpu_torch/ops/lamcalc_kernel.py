@@ -35,7 +35,7 @@ the working dtype, as arguments.
 
 **The derivatives** (:class:`LamcalcFunction`): on CUDA tensors the tangent
 kernel (the iteration on dual numbers) and the adjoint kernel (a replay
-that keeps each iterate, then the active iterations reversed), in the same
+that tapes each iterate, then the active iterations reversed), in the same
 source; their plain versions are ``plain_jvp`` of :func:`lamcalc_plain`
 and the explicit twin :func:`lamcalc_vjp_plain`.  Both differentiate the
 iteration as the JAX package's fixed-count loop unrolls it.
@@ -296,10 +296,11 @@ def lamcalc_vjp_plain(st: LamStatic, packed, g_out):
     from that of the output ``(3, B)``.
 
     It replays the iteration (:func:`lamcalc_plain_with_iterations` with a
-    tape), then reverses each member's active iterations, from the one it
-    converged at down to the first, through the secant or step update and
-    the temperatures' cofactor inverse (``t = q M^-1 v``: ``M``'s
-    cotangent is ``-(M^-T y_bar) y^T``).  A member that takes the fallback
+    tape, which keeps ``y = M^-1 v``), then reverses each member's active
+    iterations, from the one it converged at down to the first, through the
+    secant or step update and the temperatures ``t = q y`` (``M``'s
+    cotangent is ``-(M^-T y_bar) y^T``, ``M^-T y_bar`` solved by
+    :class:`_Sparse`).  A member that takes the fallback
     gets zero, as the JAX package's rule gives.  Each member's iterations
     run in the same order as the kernel's; a member past its convergence
     adds zeros.
@@ -547,13 +548,16 @@ def lamcalc_vjp(st: LamStatic, packed, g_out):
     (``rscm_tpu/ops/lamcalc_kernel.py:317-322``, not a ``pallas_call``).
     *Bound:* operations at a large batch (the function needs ~1.4x the
     forward's arithmetic, one forward and the adjoint; the kernel performs
-    ~2.4x, with the replay and the temperatures its reverse pass
-    recomputes); at a gradient's batch one member's serial iterations.
-    *Design:* one thread a member replays its iterations with
-    the forward's code, keeping each iterate, its ratio and its update's
-    branch in local memory (at most 39), then reverses them from the one
-    it converged at; the cofactor inverse is reversed as ``-(M^-T y_bar)
-    y^T`` from the replayed cofactors.  A fallback member gets zero.
+    ~1.7x, with the replay and the ratio its reverse pass recomputes); at a
+    gradient's batch one member's serial iterations.  *Design:* one thread
+    a member replays its iterations with the forward's code, taping each
+    iterate, its ratio and ``y = M^-1 v`` in local memory (at most 39) and
+    its update's branch in 2 bits of a register, then reverses them from
+    the one it converged at, holding the cotangents of the iterations an
+    update reaches (j + 1 down to j - 2) in registers; the temperatures are
+    reversed as ``-(M^-T y_bar) y^T`` with ``M^-T y_bar`` solved through
+    ``M``'s sparsity (:class:`_Sparse`), not the cofactors.  A fallback
+    member gets zero.
     """
     if packed.device.type == "cpu":
         return lamcalc_vjp_plain(st, packed, g_out)
