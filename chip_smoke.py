@@ -551,21 +551,16 @@ extern "C" __global__ void mul_f32(const float* a, const float* b, float* o) {
 """
 
 #: appended to a copy of a ``lamcalc.cu``: the resident blocks an SM of each
-#: of its three kernels (0 forward, 1 tangent, 2 adjoint) at its block size
-#: and ``smem`` dynamic shared bytes, from the CUDA occupancy calculator
+#: of its three kernels (0 forward, 1 tangent, 2 adjoint) at its block size,
+#: from the CUDA occupancy calculator
 LAMCALC_OCCUPANCY = r"""
-extern "C" int lamcalc_resident_blocks(int kind, int f64, int smem, int* blocks) {
+extern "C" int lamcalc_resident_blocks(int kind, int f64, int* blocks) {
   const void* fns[3][2] = {
       {(const void*)lamcalc_kernel<float>, (const void*)lamcalc_kernel<double>},
       {(const void*)lamcalc_jvp_kernel<float>, (const void*)lamcalc_jvp_kernel<double>},
       {(const void*)lamcalc_vjp_kernel<float>, (const void*)lamcalc_vjp_kernel<double>}};
-  const void* fn = fns[kind][f64];
-  if (smem > 48 * 1024) {
-    const cudaError_t err =
-        cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, fn, kThreads, smem);
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, fns[kind][f64], kThreads,
+                                                            0);
 }
 """
 LAMCALC_KERNELS = ("lamcalc", "lamcalc_jvp", "lamcalc_vjp")
@@ -645,16 +640,15 @@ def division_instructions(probe):
     return out
 
 
-def start_lamcalc_probe(build, source, tag, defines=()):
+def start_lamcalc_probe(build, source, tag):
     """Start ``nvcc`` on a copy of the ``lamcalc.cu`` at ``source`` with
-    LAMCALC_OCCUPANCY appended, with the kernels' flags and ``-D`` each of
-    ``defines``; returns ``(process, library path)``."""
+    LAMCALC_OCCUPANCY appended, with the kernels' flags; returns
+    ``(process, library path)``."""
     build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     src = build.BUILD_DIR / f"lamcalc_probe_{tag}.cu"
     src.write_text(open(source).read() + LAMCALC_OCCUPANCY)
     lib = build.BUILD_DIR / f"lamcalc_probe_{tag}.so"
-    cmd = [build._nvcc(), *build.NVCC_FLAGS, *(f"-D{d}" for d in defines), "-o", str(lib),
-           str(src)]
+    cmd = [build._nvcc(), *build.NVCC_FLAGS, "-o", str(lib), str(src)]
     return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), lib
 
 
@@ -684,12 +678,11 @@ def ptxas_kernels(report):
     return out
 
 
-def lamcalc_resources(probe, smem_vjp=None):
+def lamcalc_resources(probe):
     """Wait for a probe build (:func:`start_lamcalc_probe`); returns ``(the
     loaded library, {(kernel, dtype): resources})``: each kernel's registers,
     stack frame and spill bytes (ptxas) and resident warps an SM (the
-    occupancy calculator at its block size and, for the adjoint,
-    ``smem_vjp(itemsize)`` dynamic shared bytes)."""
+    occupancy calculator at its block size)."""
     import ctypes
 
     proc, lib_path = probe
@@ -698,14 +691,13 @@ def lamcalc_resources(probe, smem_vjp=None):
         raise RuntimeError(f"nvcc failed on {lib_path}:\n{report}")
     lib = ctypes.CDLL(str(lib_path))
     fn = lib.lamcalc_resident_blocks
-    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
     fn.restype = ctypes.c_int
     resources = ptxas_kernels(report)
     for kind, name in enumerate(LAMCALC_KERNELS):
-        for dn, itemsize in (("float32", 4), ("float64", 8)):
-            smem = smem_vjp(itemsize) if smem_vjp and name == "lamcalc_vjp" else 0
+        for dn in ("float32", "float64"):
             blocks = ctypes.c_int()
-            err = fn(kind, int(dn == "float64"), smem, ctypes.byref(blocks))
+            err = fn(kind, int(dn == "float64"), ctypes.byref(blocks))
             if err != 0:
                 raise RuntimeError(f"occupancy of {name} {dn}: CUDA error {err}")
             resources[(name, dn)]["warps"] = blocks.value * 128 // 32
@@ -1100,16 +1092,13 @@ def derivative_kernel_checks():
     return errs
 
 
-#: the adjoint's designs held against each other and against the parent
-#: commit's kernels (its source unpacked by ``git archive`` into
-#: ``_checkout/parent``): a source, its ``-D`` flags and the adjoint's
-#: dynamic shared bytes for an item size
+#: the adjoint's designs held against each other in one process: the parent
+#: commit's kernels and the first redesign's (commit 405ef6d), each source
+#: unpacked by ``git archive`` under ``_checkout``, and this tree's
 AB_DESIGNS = {
-    "parent": ("_checkout/parent/rscm_tpu_torch/csrc/lamcalc.cu", (), None),
-    "tape-y": ("rscm_tpu_torch/csrc/lamcalc.cu", (), None),
-    "re-solve-y": ("rscm_tpu_torch/csrc/lamcalc.cu", ("LAMCALC_VJP_RESOLVE_Y=1",), None),
-    "shared-tape": ("rscm_tpu_torch/csrc/lamcalc.cu", ("LAMCALC_VJP_SHARED_TAPE=1",),
-                    lambda itemsize: 2 * 39 * 128 * itemsize),
+    "parent": "_checkout/parent/rscm_tpu_torch/csrc/lamcalc.cu",
+    "first": "_checkout/first/rscm_tpu_torch/csrc/lamcalc.cu",
+    "this": "rscm_tpu_torch/csrc/lamcalc.cu",
 }
 
 
@@ -1118,9 +1107,9 @@ def phase_lamcalc_ab(smi):
     card: each built with LAMCALC_OCCUPANCY (registers, stack, spills,
     resident warps), checked against the twin and autograd at B = 512 and
     100,000 with the stalled members and fallback members, then timed a
-    launch at GRAD_BATCHES in both dtypes in turns (parent, tape-y,
-    re-solve-y, shared-tape, then back); the forward and tangent kernels of
-    the parent and of this tree likewise."""
+    launch at GRAD_BATCHES in both dtypes in turns (parent, first, this,
+    then back); the forward and tangent kernels of the parent and of this
+    tree likewise."""
     import contextlib
     import functools
 
@@ -1130,11 +1119,11 @@ def phase_lamcalc_ab(smi):
     from rscm_tpu_torch.ops import lamcalc_kernel as lk
     from rscm_tpu_torch.ops.plain_grad import plain_jvp
 
-    probes = {tag: start_lamcalc_probe(build, src, tag.replace("-", "_"), defines)
-              for tag, (src, defines, _) in AB_DESIGNS.items()}
+    probes = {tag: start_lamcalc_probe(build, src, f"ab_{tag}")
+              for tag, src in AB_DESIGNS.items()}
     libs = {}
     for tag, probe in probes.items():
-        libs[tag], resources = lamcalc_resources(probe, AB_DESIGNS[tag][2])
+        libs[tag], resources = lamcalc_resources(probe)
         log_resources(tag, resources, smi)
 
     build.load("lamcalc")
@@ -1165,13 +1154,12 @@ def phase_lamcalc_ab(smi):
                 e_stall = float((got - auto)[:, 1:1 + len(STALL_MEMBERS)].abs().max())
                 log(f"  lamcalc_vjp {tag} {dn} B={b}: max abs err {e_twin:.3e} vs the twin, "
                     f"{e_auto:.3e} vs autograd ({e_stall:.3e} on the stalled members)")
-                if tag == "shared-tape" and e_twin != 0.0:
-                    raise AssertionError(f"lamcalc_vjp shared-tape {dn} B={b} differs from the twin")
+                if tag == "this" and e_twin != 0.0:
+                    raise AssertionError(f"lamcalc_vjp {dn} B={b} differs from the twin")
 
-    orders = {"lamcalc": ("parent", "tape-y", "tape-y", "parent"),
-              "lamcalc_jvp": ("parent", "tape-y", "tape-y", "parent"),
-              "lamcalc_vjp": ("parent", "tape-y", "re-solve-y", "shared-tape", "shared-tape",
-                              "re-solve-y", "tape-y", "parent")}
+    orders = {"lamcalc": ("parent", "this", "this", "parent"),
+              "lamcalc_jvp": ("parent", "this", "this", "parent"),
+              "lamcalc_vjp": ("parent", "first", "this", "this", "first", "parent")}
     for dtype in (torch.float64, torch.float32):
         dn = str(dtype)[6:]
         for b in GRAD_BATCHES:

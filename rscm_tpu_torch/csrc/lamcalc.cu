@@ -50,19 +50,6 @@ constexpr int kMaxIterations = 40;
 constexpr int kIterations = kMaxIterations - 1;
 constexpr int kThreads = 128;
 
-// Alternatives to the adjoint's tape, measured against it on the card:
-// y = M^-1 v solved again in the reverse pass through M's sparsity instead
-// of taped by the replay, and the iterates and ratios in shared memory
-// instead of local.
-#ifndef LAMCALC_VJP_RESOLVE_Y
-#define LAMCALC_VJP_RESOLVE_Y 0
-#endif
-#ifndef LAMCALC_VJP_SHARED_TAPE
-#define LAMCALC_VJP_SHARED_TAPE 0
-#endif
-constexpr bool kTapeY = !LAMCALC_VJP_RESOLVE_Y;
-constexpr bool kSharedTape = LAMCALC_VJP_SHARED_TAPE;
-
 // Constants, in the order of _consts in ops/lamcalc_kernel.py.
 enum Const {
   C_FGNO, C_FGNL, C_FGSO, C_FGSL, C_V0, C_V1, C_V2, C_V3, C_FRATIO,
@@ -165,76 +152,67 @@ __device__ __forceinline__ void temps_from(const Consts<T>& k, V q, V k_lo, V k_
   }
 }
 
-// M by its sparsity, for the adjoint's reverse pass: with b = k_lo alpha,
+// M^T by M's sparsity, for the adjoint's reverse pass: with b = k_lo alpha,
 //   M = [[a0, -k_lo, -k_ns, 0], [-b, a1, 0, 0], [-k_ns, 0, a2, -k_lo], [0, 0, -b, a3]],
-// rows 1 and 3 each tie one unknown to y0 or y2, so eliminating y1 and y3
-// leaves the symmetric 2x2 system [[p, -k_ns], [-k_ns, s]] (p = a0 - b k_lo / a1,
-// s = a2 - b k_lo / a3) for M y = v and for M^T u = w alike: ~20 operations a
-// solve after three divisions, against the cofactors' ~290.  The same
-// operations in the same order as _Sparse in ops/lamcalc_kernel.py.
+// rows 1 and 3 of M^T u = w each tie one unknown to u0 or u2 (u1 = (w1 +
+// k_lo u0) / a1, u3 = (w3 + k_lo u2) / a3); eliminating them leaves a 2x2
+// system whose determinant, times a1 a3, is d = (a0 a1 - k_lo b)(a2 a3 - k_lo b)
+// - k_ns^2 a1 a3.  One division, 1 / (a1 a3 d), gives 1 / d, 1 / a1 and
+// 1 / a3, so a solve is 17 operations on w, against the cofactors' ~290.
+// The same operations in the same order as _Sparse in ops/lamcalc_kernel.py.
 template <typename T>
 struct Sparse {
-  T k_lo, k_ns, b, r1, r3, c1, c3, p, s, inv2;
+  T k_lo, b, a1, a3, r1, r3, c00, c02, c20, c22;
 
-  __device__ __forceinline__ Sparse(const Consts<T>& k, T k_lo_, T k_ns_, T alpha, T lam_o,
+  __device__ __forceinline__ Sparse(const Consts<T>& k, T k_lo_, T k_ns, T alpha, T lam_o,
                                     T lam_l)
-      : k_lo(k_lo_), k_ns(k_ns_) {
+      : k_lo(k_lo_) {
     b = k_lo * alpha;
     const T a_diag = b + k_ns;
     const T a0 = k.c[C_FGNO] * lam_o + a_diag;
-    const T a1 = k.c[C_FGNL] * lam_l + k_lo;
+    a1 = k.c[C_FGNL] * lam_l + k_lo;
     const T a2 = k.c[C_FGSO] * lam_o + a_diag;
-    const T a3 = k.c[C_FGSL] * lam_l + k_lo;
-    r1 = T(1) / a1;
-    r3 = T(1) / a3;
-    c1 = k_lo * r1;
-    c3 = k_lo * r3;
-    p = a0 - c1 * b;
-    s = a2 - c3 * b;
-    inv2 = T(1) / (p * s - k_ns * k_ns);
-  }
-
-  // y = M^-1 v
-  __device__ __forceinline__ void solve(const T (&v)[4], T (&y)[4]) const {
-    const T h0 = v[0] + c1 * v[1];
-    const T h2 = v[2] + c3 * v[3];
-    y[0] = (s * h0 + k_ns * h2) * inv2;
-    y[2] = (k_ns * h0 + p * h2) * inv2;
-    y[1] = (v[1] + b * y[0]) * r1;
-    y[3] = (v[3] + b * y[2]) * r3;
+    a3 = k.c[C_FGSL] * lam_l + k_lo;
+    const T kb = k_lo * b;
+    const T p = a0 * a1 - kb;
+    const T s = a2 * a3 - kb;
+    const T a13 = a1 * a3;
+    const T d = p * s - (k_ns * k_ns) * a13;
+    const T rd = T(1) / (a13 * d);
+    const T inv_d = a13 * rd;
+    r1 = (a3 * d) * rd;
+    r3 = (a1 * d) * rd;
+    c00 = s * inv_d;
+    c02 = (k_ns * a1) * inv_d;
+    c20 = (k_ns * a3) * inv_d;
+    c22 = p * inv_d;
   }
 
   // u = M^-T w
   __device__ __forceinline__ void solve_transposed(const T (&w)[4], T (&u)[4]) const {
-    const T g0 = w[0] + (b * r1) * w[1];
-    const T g2 = w[2] + (b * r3) * w[3];
-    u[0] = (s * g0 + k_ns * g2) * inv2;
-    u[2] = (k_ns * g0 + p * g2) * inv2;
+    const T h0 = a1 * w[0] + b * w[1];
+    const T h2 = a3 * w[2] + b * w[3];
+    u[0] = c00 * h0 + c02 * h2;
+    u[2] = c20 * h0 + c22 * h2;
     u[1] = (w[1] + k_lo * u[0]) * r1;
     u[3] = (w[3] + k_lo * u[2]) * r3;
   }
 };
 
-// The adjoint's tape of its replay: each iteration's iterate and ratio at
-// [iteration * stride] (a thread's own local array, stride 1, or shared memory
-// laid out [iteration][thread], stride the block's threads) and each update's
-// branch code in 2 bits of two registers.
+// The adjoint's tape of its replay, in the thread's local memory: each
+// iteration's iterate, ratio and y = M^-1 v, and each update's branch code in
+// 2 bits of two registers.
 template <typename T>
 struct IterTape {
-  T* lamo;
-  T* diff;
-  int stride;
-  T* ys;  // y = M^-1 v, 4 values an iteration, [iteration][4] a thread
+  T lamo[kIterations], diff[kIterations], ys[4 * kIterations];
   uint64_t codes_lo = 0, codes_hi = 0;  // iterations 0-31, 32-38
 
   __device__ __forceinline__ void record(int it, T lamo_i, T diff_i, unsigned code,
                                          const T (&y)[4]) {
-    lamo[it * stride] = lamo_i;
-    diff[it * stride] = diff_i;
-    if constexpr (kTapeY) {
+    lamo[it] = lamo_i;
+    diff[it] = diff_i;
 #pragma unroll
-      for (int c = 0; c < 4; ++c) ys[4 * it + c] = y[c];
-    }
+    for (int c = 0; c < 4; ++c) ys[4 * it + c] = y[c];
     const uint64_t c = (uint64_t)code << (2 * (it & 31));
     if (it < 32) codes_lo |= c; else codes_hi |= c;
   }
@@ -355,8 +333,10 @@ __global__ void __launch_bounds__(kThreads) lamcalc_jvp_kernel(
 // same operations in the same order).  The replay is the forward's own
 // iteration with a tape; the reverse pass holds the cotangents of
 // iterations j + 1, j, j - 1 and j - 2 (all an update reaches) and the
-// tape's values at j, j - 1 and j - 2 in registers, shifting them down an
-// iteration a step, and reverses the temperatures through M's sparsity.
+// tape's iterates and ratios at j, j - 1 and j - 2 in registers, shifting
+// them down an iteration a step, reverses the temperatures through M's
+// sparsity, and divides by rlo, ecs, the ocean mean and a secant's
+// denominator once, multiplying by the reciprocal after.
 template <typename T>
 __global__ void __launch_bounds__(kThreads) lamcalc_vjp_kernel(
     const Consts<T> k, int rf_sum_zero, const T* __restrict__ in, const T* __restrict__ g_out,
@@ -367,21 +347,6 @@ __global__ void __launch_bounds__(kThreads) lamcalc_vjp_kernel(
 #pragma unroll
   for (int r = 0; r < R_COUNT; ++r) x[r] = in[r * B + m];
   IterTape<T> tape;
-#if LAMCALC_VJP_SHARED_TAPE
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  tape.lamo = reinterpret_cast<T*>(smem_raw) + threadIdx.x;
-  tape.diff = tape.lamo + kIterations * kThreads;
-  tape.stride = kThreads;
-#else
-  T lamo_tape[kIterations], diff_tape[kIterations];
-  tape.lamo = lamo_tape;
-  tape.diff = diff_tape;
-  tape.stride = 1;
-#endif
-#if !LAMCALC_VJP_RESOLVE_Y
-  T y_tape[4 * kIterations];
-  tape.ys = y_tape;
-#endif
   int kstar = 0;
   T best_lam_o, best_lam_l, best_eff;
   const bool found = iterate<T, T>(k, x, best_lam_o, best_lam_l, best_eff, &tape, &kstar);
@@ -393,14 +358,14 @@ __global__ void __launch_bounds__(kThreads) lamcalc_vjp_kernel(
     const T k_ns = x[R_K_NS], rlo = x[R_RLO], alpha = x[R_ALPHA];
     const T fgno = k.c[C_FGNO], fgnl = k.c[C_FGNL], fgso = k.c[C_FGSO], fgsl = k.c[C_FGSL];
     const T fg[4] = {fgno, fgnl, fgso, fgsl};
-    const T v[4] = {k.c[C_V0], k.c[C_V1], k.c[C_V2], k.c[C_V3]};
     const T lam = q / ecs;
+    const T inv_rlo = T(1) / rlo, inv_ecs = T(1) / ecs;
     T lam_bar = T(0);
     // lamo's cotangent at j + 1, j, j - 1, j - 2; the ratio's at j, j - 1, j - 2
     T lb_next = T(0), lb0 = T(0), lb1 = T(0), lb2 = T(0);
     T db0 = T(0), db1 = T(0), db2 = T(0);
-    auto lamo_at = [&](int j) { return j >= 0 ? tape.lamo[j * tape.stride] : T(0); };
-    auto diff_at = [&](int j) { return j >= 0 ? tape.diff[j * tape.stride] : T(0); };
+    auto lamo_at = [&](int j) { return j >= 0 ? tape.lamo[j] : T(0); };
+    auto diff_at = [&](int j) { return j >= 0 ? tape.diff[j] : T(0); };
     T lo0 = lamo_at(kstar), lo1 = lamo_at(kstar - 1), lo2 = lamo_at(kstar - 2);
     T df0 = diff_at(kstar), df1 = diff_at(kstar - 1), df2 = diff_at(kstar - 2);
     for (int j = kstar; j >= 0; --j) {
@@ -412,10 +377,10 @@ __global__ void __launch_bounds__(kThreads) lamcalc_vjp_kernel(
         const unsigned code = tape.code(j);
         if (code == 1u || code == 2u) {
           const bool one = code == 1u;
-          const T den = diff_i - (one ? df1 : df2);
+          const T inv_den = T(1) / (diff_i - (one ? df1 : df2));
           const T r = lamo_i - (one ? lo1 : lo2);
-          const T qv = diff_i * r / den;
-          const T p_bar = -big_l / den;
+          const T qv = (diff_i * r) * inv_den;
+          const T p_bar = -big_l * inv_den;
           const T den_bar = -(p_bar * qv);
           db0 = db0 + p_bar * r;
           const T r_bar = p_bar * diff_i;
@@ -426,35 +391,32 @@ __global__ void __launch_bounds__(kThreads) lamcalc_vjp_kernel(
         }
       }
       // the iteration's ratio, efficacy and land feedback
-      T ll_bar = T(0), eff_bar = T(0);
-      if (j == kstar) {
-        lb0 = lb0 + g_out[0 * B + m];
-        ll_bar = g_out[1 * B + m];
-        if (!rf_sum_zero) eff_bar = g_out[2 * B + m];
-      }
-      const T lam_l = lam + k.c[C_FRATIO] * (lam - lamo_i) / rlo;
-      const Sparse<T> sp(k, k_lo, k_ns, alpha, lamo_i, lam_l);
-      T y[4], t[4];
-      if constexpr (kTapeY) {
-#pragma unroll
-        for (int c = 0; c < 4; ++c) y[c] = tape.ys[4 * j + c];
-      } else {
-        sp.solve(v, y);
-      }
+      const T w = k.c[C_FRATIO] * (lam - lamo_i);
+      const T wr = w / rlo;  // the forward's own quotient
+      const Sparse<T> sp(k, k_lo, k_ns, alpha, lamo_i, lam + wr);
+      const T* y = &tape.ys[4 * j];
+      T t[4];
 #pragma unroll
       for (int c = 0; c < 4; ++c) t[c] = q * y[c];
+      T ll_bar = T(0), t_bar[4] = {T(0), T(0), T(0), T(0)};
+      if (j == kstar) {  // the output's cotangent enters at the iterate the member kept
+        lb0 = lb0 + g_out[0 * B + m];
+        ll_bar = g_out[1 * B + m];
+        if (!rf_sum_zero) {
+          const T tg = fgno * t[0] + fgnl * t[1] + fgso * t[2] + fgsl * t[3];
+          const T tg_bar = g_out[2 * B + m] * inv_ecs;
+          bar[R_ECS] += -(tg_bar * (tg * inv_ecs));
+#pragma unroll
+          for (int c = 0; c < 4; ++c) t_bar[c] = tg_bar * fg[c];
+        }
+      }
       const T om = (fgno * t[0] + fgso * t[2]) * k.c[C_INV_FGOSUM];
       const T lm = (fgnl * t[1] + fgsl * t[3]) * k.c[C_INV_FGLSUM];
+      const T inv_om = T(1) / om;
       const T db = db0;
       bar[R_RLO] += db;
-      const T lm_bar = -db / om;
-      const T om_bar = -(lm_bar * (lm / om));
-      const T tg = fgno * t[0] + fgnl * t[1] + fgso * t[2] + fgsl * t[3];
-      const T tg_bar = eff_bar / ecs;
-      bar[R_ECS] += -(tg_bar * (tg / ecs));
-      T t_bar[4];
-#pragma unroll
-      for (int c = 0; c < 4; ++c) t_bar[c] = tg_bar * fg[c];
+      const T lm_bar = -db * inv_om;
+      const T om_bar = -(lm_bar * (lm * inv_om));
       const T s_l = lm_bar * k.c[C_INV_FGLSUM];
       t_bar[1] = t_bar[1] + s_l * fgnl;
       t_bar[3] = t_bar[3] + s_l * fgsl;
@@ -487,11 +449,10 @@ __global__ void __launch_bounds__(kThreads) lamcalc_vjp_kernel(
       bar[R_K_LO] += ad_bar * alpha;
       bar[R_ALPHA] += ad_bar * k_lo;
       bar[R_K_NS] += ad_bar;
-      // lam_l = lam + fratio * (lam - lamo_i) / rlo
+      // lam_l = lam + w / rlo, w = fratio * (lam - lamo_i)
       lam_bar = lam_bar + ll_bar;
-      const T w = k.c[C_FRATIO] * (lam - lamo_i);
-      const T w_bar = ll_bar / rlo;
-      bar[R_RLO] += -(w_bar * (w / rlo));
+      const T w_bar = ll_bar * inv_rlo;
+      bar[R_RLO] += -(w_bar * wr);
       const T dl_bar = w_bar * k.c[C_FRATIO];
       lam_bar = lam_bar + dl_bar;
       lb0 = lb0 - dl_bar;
@@ -511,7 +472,7 @@ __global__ void __launch_bounds__(kThreads) lamcalc_vjp_kernel(
       df2 = diff_at(j - 3);
     }
     lam_bar = lam_bar + lb_next;
-    const T lam_q = lam_bar / ecs;
+    const T lam_q = lam_bar * inv_ecs;
     bar[R_Q] += lam_q;
     bar[R_ECS] += -(lam_q * lam);
   }
@@ -556,13 +517,7 @@ int launch_vjp(const T* consts, int n_consts, int rf_sum_zero, const T* in, cons
   Consts<T> k;
   if (prepare(consts, n_consts, &k) != 0) return (int)cudaErrorInvalidValue;
   if (B <= 0) return 0;
-  const int smem = kSharedTape ? (int)(2 * kIterations * kThreads * sizeof(T)) : 0;
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute((const void*)lamcalc_vjp_kernel<T>,
-                                                 cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  lamcalc_vjp_kernel<T><<<blocks_of(B), kThreads, smem, (cudaStream_t)stream>>>(
+  lamcalc_vjp_kernel<T><<<blocks_of(B), kThreads, 0, (cudaStream_t)stream>>>(
       k, rf_sum_zero, in, g_out, g_in, B);
   return (int)cudaGetLastError();
 }

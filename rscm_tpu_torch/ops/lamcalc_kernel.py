@@ -153,29 +153,37 @@ class _Sparse:
     ``csrc/lamcalc.cu``, its operations in its order).  With ``b = k_lo
     alpha``, ``M = [[a0, -k_lo, -k_ns, 0], [-b, a1, 0, 0], [-k_ns, 0, a2,
     -k_lo], [0, 0, -b, a3]]``: rows 1 and 3 of ``M^T u = w`` each tie one
-    unknown to ``u0`` or ``u2``, so eliminating ``u1`` and ``u3`` leaves
-    the symmetric 2x2 system ``[[p, -k_ns], [-k_ns, s]]``."""
+    unknown to ``u0`` or ``u2``; eliminating them leaves a 2x2 system whose
+    determinant, times ``a1 a3``, is ``d = (a0 a1 - k_lo b)(a2 a3 - k_lo b)
+    - k_ns^2 a1 a3``, and one division, ``1 / (a1 a3 d)``, gives ``1 / d``,
+    ``1 / a1`` and ``1 / a3``."""
 
     def __init__(self, st: LamStatic, k_lo, k_ns, alpha, lam_o, lam_l):
         fgno, fgnl, fgso, fgsl = st.fg
-        self.k_lo, self.k_ns = k_lo, k_ns
+        self.k_lo = k_lo
         self.b = b = k_lo * alpha
         a_diag = b + k_ns
         a0 = fgno * lam_o + a_diag
-        a1 = fgnl * lam_l + k_lo
+        self.a1 = a1 = fgnl * lam_l + k_lo
         a2 = fgso * lam_o + a_diag
-        a3 = fgsl * lam_l + k_lo
-        self.r1, self.r3 = 1.0 / a1, 1.0 / a3
-        self.p = a0 - (k_lo * self.r1) * b
-        self.s = a2 - (k_lo * self.r3) * b
-        self.inv2 = 1.0 / (self.p * self.s - k_ns * k_ns)
+        self.a3 = a3 = fgsl * lam_l + k_lo
+        kb = k_lo * b
+        p = a0 * a1 - kb
+        s = a2 * a3 - kb
+        a13 = a1 * a3
+        d = p * s - (k_ns * k_ns) * a13
+        rd = 1.0 / (a13 * d)
+        inv_d = a13 * rd
+        self.r1, self.r3 = (a3 * d) * rd, (a1 * d) * rd
+        self.c00, self.c02 = s * inv_d, (k_ns * a1) * inv_d
+        self.c20, self.c22 = (k_ns * a3) * inv_d, p * inv_d
 
     def solve_transposed(self, w):
         """``u = M^-T w``."""
-        g0 = w[0] + (self.b * self.r1) * w[1]
-        g2 = w[2] + (self.b * self.r3) * w[3]
-        u0 = (self.s * g0 + self.k_ns * g2) * self.inv2
-        u2 = (self.k_ns * g0 + self.p * g2) * self.inv2
+        h0 = self.a1 * w[0] + self.b * w[1]
+        h2 = self.a3 * w[2] + self.b * w[3]
+        u0 = self.c00 * h0 + self.c02 * h2
+        u2 = self.c20 * h0 + self.c22 * h2
         return [u0, (w[1] + self.k_lo * u0) * self.r1, u2, (w[3] + self.k_lo * u2) * self.r3]
 
 
@@ -319,6 +327,7 @@ def lamcalc_vjp_plain(st: LamStatic, packed, g_out):
         g_lo, g_ll, g_eff = g_out.unbind(0)
         bars = dict.fromkeys(SCALAR_ROWS, zero)
         lam = q / ecs
+        inv_rlo, inv_ecs = 1.0 / rlo, 1.0 / ecs
         lam_bar = zero
         lamo_bar = [zero] * (len(tape) + 1)
         diff_bar = [zero] * (len(tape) + 1)
@@ -339,10 +348,10 @@ def lamcalc_vjp_plain(st: LamStatic, packed, g_out):
             diff_back = torch.where(sign_change, rec["diff_im1"], rec["diff_im2"])
             den = diff_i - diff_back
             secant = upd & ~rec["step"] & ~(den.abs() < 1e-30)
-            den = torch.where(secant, den, torch.ones_like(den))
+            inv_den = 1.0 / torch.where(secant, den, torch.ones_like(den))
             r = lamo_i - lamo_back
-            qv = diff_i * r / den
-            p_bar = torch.where(secant, -big_l, zero) / den
+            qv = (diff_i * r) * inv_den
+            p_bar = torch.where(secant, -big_l, zero) * inv_den
             den_bar = -(p_bar * qv)
             diff_bar[j] = diff_bar[j] + p_bar * r
             r_bar = p_bar * diff_i
@@ -363,16 +372,19 @@ def lamcalc_vjp_plain(st: LamStatic, packed, g_out):
             sp = _Sparse(st, k_lo, k_ns, alpha, lamo_i, rec["lam_l"])
             y = rec["y"]
             t = [q * y[k] for k in range(4)]
+            # (the kernel takes the efficacy's terms at the converged iterate
+            # only: elsewhere they add zeros)
+            tg = fgno * t[0] + fgnl * t[1] + fgso * t[2] + fgsl * t[3]
+            tg_bar = eff_bar * inv_ecs
+            add("ecs", -(tg_bar * (tg * inv_ecs)))
+            t_bar = [tg_bar * fg[k] for k in range(4)]
             om = (fgno * t[0] + fgso * t[2]) / fgosum
             lm = (fgnl * t[1] + fgsl * t[3]) / fglsum
+            inv_om = 1.0 / om
             db = torch.where(act, diff_bar[j], zero)
             add("rlo", db)
-            lm_bar = -db / om
-            om_bar = -(lm_bar * (lm / om))
-            tg = fgno * t[0] + fgnl * t[1] + fgso * t[2] + fgsl * t[3]
-            tg_bar = eff_bar / ecs
-            add("ecs", -(tg_bar * (tg / ecs)))
-            t_bar = [tg_bar * fg[k] for k in range(4)]
+            lm_bar = -db * inv_om
+            om_bar = -(lm_bar * (lm * inv_om))
             s_l = lm_bar / fglsum
             t_bar[1] = t_bar[1] + s_l * fgnl
             t_bar[3] = t_bar[3] + s_l * fgsl
@@ -404,17 +416,17 @@ def lamcalc_vjp_plain(st: LamStatic, packed, g_out):
             add("k_lo", ad_bar * alpha)
             add("alpha", ad_bar * k_lo)
             add("k_ns", ad_bar)
-            # lam_l = lam + fratio * (lam - lamo_i) / rlo
+            # lam_l = lam + w / rlo, w = fratio * (lam - lamo_i)
             lam_bar = lam_bar + ll_bar
             w = fratio * (lam - lamo_i)
-            w_bar = ll_bar / rlo
+            w_bar = ll_bar * inv_rlo
             add("rlo", -(w_bar * (w / rlo)))
             dl_bar = w_bar * fratio
             lam_bar = lam_bar + dl_bar
             lamo_bar[j] = lamo_bar[j] - dl_bar
 
         lam_bar = lam_bar + lamo_bar[0]
-        lam_q = lam_bar / ecs
+        lam_q = lam_bar * inv_ecs
         add("q", lam_q)
         add("ecs", -(lam_q * lam))
         out = torch.stack([bars[name] for name in SCALAR_ROWS])
