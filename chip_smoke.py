@@ -10,10 +10,12 @@ Phases, each printed with its elapsed time:
               each, run together: the forward, tangent and adjoint kernels of
               ``udeb_year`` and ``lamcalc``), with the ``-Xptxas -v``
               register/spill report and the launch configuration and
-              occupancy of ``udeb_year`` and its tangent and adjoint; beside
-              them a probe of one IEEE division per dtype, built with the same
-              flags, whose SASS (``cuobjdump -sass``) gives the instructions a
-              division takes;
+              occupancy of ``udeb_year`` and its tangent and adjoint, and each
+              ``lamcalc`` kernel's registers, stack, spills and resident warps
+              (a copy of ``lamcalc.cu`` with an occupancy query appended,
+              built beside them); beside them a probe of one IEEE division per
+              dtype, built with the same flags, whose SASS (``cuobjdump
+              -sass``) gives the instructions a division takes;
 3. kernels -- each kernel against its plain PyTorch version on the card, at
               B = 100,000 and a ragged B = 99,997, in float64 and float32, and
               ``udeb_year`` at B = 99,997 at n = 2, 3, 17, 50, 100 and its
@@ -28,12 +30,13 @@ Phases, each printed with its elapsed time:
               of the plain forward at KERNEL_TOL, each adjoint against its
               explicit twin bit for bit and against autograd of the plain
               forward at AUTOGRAD_TOL, a LAMCALC fallback member's
-              derivatives zero, while the references run (below); and,
-              once they are collected, each derivative kernel's device time a
-              launch at B = 1, 8, 512 and 100,000 (``udeb_year``'s in float64
-              and float32) with its bound (its plain version's time at
-              100,000 in float64) (``python3 chip_smoke.py kernels`` runs
-              this phase alone);
+              derivatives zero, at B >= 512 beside members whose secants
+              stall (in float64 every branch code of the update, 0-3, is
+              reversed), while the references run (below); and, once they
+              are collected, each derivative kernel's device time a launch at
+              B = 1, 8, 512 and 100,000 in float64 and float32 with its bound
+              (its plain version's time at 100,000 in float64)
+              (``python3 chip_smoke.py kernels`` runs this phase alone);
 4. main    -- the port's main path: a 100,000-member, 251-year ClimateUDEB
               ensemble driven by the 1pctCO2 forcing ramp, built with
               ``ModelBuilder`` and run by ``EnsembleRunner.run`` in float64;
@@ -640,14 +643,13 @@ def division_instructions(probe):
     return out
 
 
-def start_lamcalc_probe(build, source, tag):
-    """Start ``nvcc`` on a copy of the ``lamcalc.cu`` at ``source`` with
-    LAMCALC_OCCUPANCY appended, with the kernels' flags; returns
-    ``(process, library path)``."""
+def start_lamcalc_probe(build):
+    """Start ``nvcc`` on a copy of ``csrc/lamcalc.cu`` with LAMCALC_OCCUPANCY
+    appended, with the kernels' flags; returns ``(process, library path)``."""
     build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    src = build.BUILD_DIR / f"lamcalc_probe_{tag}.cu"
-    src.write_text(open(source).read() + LAMCALC_OCCUPANCY)
-    lib = build.BUILD_DIR / f"lamcalc_probe_{tag}.so"
+    src = build.BUILD_DIR / "lamcalc_probe.cu"
+    src.write_text((build.CSRC / "lamcalc.cu").read_text() + LAMCALC_OCCUPANCY)
+    lib = build.BUILD_DIR / "lamcalc_probe.so"
     cmd = [build._nvcc(), *build.NVCC_FLAGS, "-o", str(lib), str(src)]
     return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), lib
 
@@ -678,11 +680,10 @@ def ptxas_kernels(report):
     return out
 
 
-def lamcalc_resources(probe):
-    """Wait for a probe build (:func:`start_lamcalc_probe`); returns ``(the
-    loaded library, {(kernel, dtype): resources})``: each kernel's registers,
-    stack frame and spill bytes (ptxas) and resident warps an SM (the
-    occupancy calculator at its block size)."""
+def log_lamcalc_resources(probe, smi):
+    """Wait for the probe build (:func:`start_lamcalc_probe`) and log each
+    ``lamcalc`` kernel's registers, stack frame and spill bytes (ptxas) and
+    resident warps an SM (the occupancy calculator at its block size)."""
     import ctypes
 
     proc, lib_path = probe
@@ -701,12 +702,8 @@ def lamcalc_resources(probe):
             if err != 0:
                 raise RuntimeError(f"occupancy of {name} {dn}: CUDA error {err}")
             resources[(name, dn)]["warps"] = blocks.value * 128 // 32
-    return lib, resources
-
-
-def log_resources(what, resources, smi):
     for (name, dn), r in sorted(resources.items()):
-        log(f"  {what} {name} {dn}: {r['registers']} registers, {r['stack']} bytes stack frame, "
+        log(f"  {name} {dn}: {r['registers']} registers, {r['stack']} bytes stack frame, "
             f"{r['spill_stores']} / {r['spill_loads']} bytes spill stores / loads, "
             f"{r['warps']} warps resident an SM (blocks of 128 threads) [{smi}]")
 
@@ -801,7 +798,7 @@ def phase_build(smi):
     shutil.rmtree(build.BUILD_DIR, ignore_errors=True)  # build from the sources, always
     t = time.perf_counter()
     probe = start_division_probe(build)
-    occupancy = start_lamcalc_probe(build, build.CSRC / "lamcalc.cu", "occupancy")
+    occupancy = start_lamcalc_probe(build)
     reports = build.build_all(["udeb_year", "lamcalc"])
     div_instr = division_instructions(probe)
     log(f"  built {sorted(reports)} with nvcc {' '.join(build.NVCC_FLAGS)} "
@@ -809,7 +806,7 @@ def phase_build(smi):
     for name, report in sorted(reports.items()):
         for line in build.ptxas_summary(report):
             log(f"  {name}: {line} [{smi}]")
-    log_resources("resources of", lamcalc_resources(occupancy)[1], smi)
+    log_lamcalc_resources(occupancy, smi)
     for dn, (total, pipe) in div_instr.items():
         log(f"  an IEEE division in {dn} takes {total} instructions, {pipe} of them on the "
             f"{dn[5:]}-bit FMA pipe (SASS of the division probe)")
@@ -1049,8 +1046,11 @@ def derivative_kernel_checks():
         _, iters = lk.lamcalc_plain_with_iterations(lst, packed)
         torch.cuda.synchronize()
         fallback = iters == lk.MAX_ITERATIONS - 1
+        codes = lk.branch_codes(lst, packed)
         what = (f"{dname} B={b} ({int(fallback.sum())} members take the fallback; branch codes "
-                f"{sorted(lk.branch_codes(lst, packed))} reversed)")
+                f"{sorted(codes)} reversed)")
+        if b >= 512 and dname == "float64" and codes != {0, 1, 2, 3}:
+            raise AssertionError(f"lamcalc derivatives {what}: not every branch is reversed")
         if bool(got_t[:, fallback].any()) or bool(got_g[:, fallback].any()):
             raise AssertionError(f"lamcalc derivatives {what}: a fallback member's is not 0")
         err_jvp = check_close(f"lamcalc_jvp {what} vs plain_jvp", got_t, want_t, rtol, atol)
@@ -1090,95 +1090,6 @@ def derivative_kernel_checks():
             else:
                 raise AssertionError(f"{kernel} took {limit + 1} layers in {dname}")
     return errs
-
-
-#: the adjoint's designs held against each other in one process: the parent
-#: commit's kernels and the first redesign's (commit 405ef6d), each source
-#: unpacked by ``git archive`` under ``_checkout``, and this tree's
-AB_DESIGNS = {
-    "parent": "_checkout/parent/rscm_tpu_torch/csrc/lamcalc.cu",
-    "first": "_checkout/first/rscm_tpu_torch/csrc/lamcalc.cu",
-    "this": "rscm_tpu_torch/csrc/lamcalc.cu",
-}
-
-
-def phase_lamcalc_ab(smi):
-    """The ``lamcalc`` adjoint's designs (AB_DESIGNS) in one process on one
-    card: each built with LAMCALC_OCCUPANCY (registers, stack, spills,
-    resident warps), checked against the twin and autograd at B = 512 and
-    100,000 with the stalled members and fallback members, then timed a
-    launch at GRAD_BATCHES in both dtypes in turns (parent, first, this,
-    then back); the forward and tangent kernels of the parent and of this
-    tree likewise."""
-    import contextlib
-    import functools
-
-    import torch
-
-    from rscm_tpu_torch.ops import build
-    from rscm_tpu_torch.ops import lamcalc_kernel as lk
-    from rscm_tpu_torch.ops.plain_grad import plain_jvp
-
-    probes = {tag: start_lamcalc_probe(build, src, f"ab_{tag}")
-              for tag, src in AB_DESIGNS.items()}
-    libs = {}
-    for tag, probe in probes.items():
-        libs[tag], resources = lamcalc_resources(probe)
-        log_resources(tag, resources, smi)
-
-    build.load("lamcalc")
-    saved = build._LOADED["lamcalc"]
-
-    @contextlib.contextmanager
-    def design(tag):
-        build._LOADED["lamcalc"] = libs[tag]
-        try:
-            yield
-        finally:
-            build._LOADED["lamcalc"] = saved
-
-    for dtype in (torch.float64, torch.float32):
-        dn = str(dtype)[6:]
-        for b in (512, N_MEMBERS):
-            lst, packed = lamcalc_inputs(b, dtype, seed=b + 3, fallback_every=64)
-            packed[:, 1:1 + len(STALL_MEMBERS)] = torch.tensor(STALL_MEMBERS, dtype=dtype).T
-            g_out = seeded((3, b), dtype, 22)
-            twin = lk.lamcalc_vjp_plain(lst, packed, g_out)
-            x = packed.clone().requires_grad_(True)
-            (auto,) = torch.autograd.grad(lk.lamcalc_plain(lst, x), x, g_out)
-            for tag in AB_DESIGNS:
-                with design(tag):
-                    got = lk.lamcalc_vjp(lst, packed, g_out)
-                torch.cuda.synchronize()
-                e_twin, e_auto = (float((got - w).abs().max()) for w in (twin, auto))
-                e_stall = float((got - auto)[:, 1:1 + len(STALL_MEMBERS)].abs().max())
-                log(f"  lamcalc_vjp {tag} {dn} B={b}: max abs err {e_twin:.3e} vs the twin, "
-                    f"{e_auto:.3e} vs autograd ({e_stall:.3e} on the stalled members)")
-                if tag == "this" and e_twin != 0.0:
-                    raise AssertionError(f"lamcalc_vjp {dn} B={b} differs from the twin")
-
-    orders = {"lamcalc": ("parent", "this", "this", "parent"),
-              "lamcalc_jvp": ("parent", "this", "this", "parent"),
-              "lamcalc_vjp": ("parent", "first", "this", "this", "first", "parent")}
-    for dtype in (torch.float64, torch.float32):
-        dn = str(dtype)[6:]
-        for b in GRAD_BATCHES:
-            reps = 20 if b < N_MEMBERS else 5
-            lst, packed = lamcalc_inputs(b, dtype, seed=1, fallback_every=0)
-            tangent, g_out = seeded(packed.shape, dtype, 6), seeded((3, b), dtype, 7)
-            calls = {"lamcalc": lambda: lk.lamcalc(lst, packed),
-                     "lamcalc_jvp": lambda: lk.lamcalc_jvp(lst, packed, tangent),
-                     "lamcalc_vjp": lambda: lk.lamcalc_vjp(lst, packed, g_out)}
-            for name, order in orders.items():
-                readings = {}
-                for tag in order:
-                    with design(tag):
-                        readings.setdefault(tag, []).append(
-                            kernel_device_ms(calls[name], f"{name}_kernel", reps))
-                line = ", ".join(f"{tag} {' / '.join(f'{ms:.4f}' for ms in rs)} "
-                                 f"(x{min(rs) / min(readings['parent']):.3f} of parent)"
-                                 for tag, rs in readings.items())
-                log(f"  ab {name} {dn} B={b}: ms a launch, in turns: {line} [{smi}]")
 
 
 def read_golden(name):
@@ -3657,7 +3568,7 @@ PHASES = ("kernels", "main", "second", "magicc", "flagship", "scenarios", "fullm
 
 
 def main(selected):
-    unknown = set(selected) - set(PHASES) - {"ab"}
+    unknown = set(selected) - set(PHASES)
     if unknown:
         raise SystemExit(f"unknown phase(s) {sorted(unknown)}; phases: {', '.join(PHASES)}")
     run = set(selected or PHASES)
@@ -3674,9 +3585,6 @@ def main(selected):
         elif refs.pending:
             with Phase("references"):
                 refs.collect()
-        if "ab" in run:
-            with Phase("ab"):
-                phase_lamcalc_ab(smi)
         if "main" in run:
             with Phase("main"):
                 runner, params, launches, n_steps = phase_main()

@@ -658,8 +658,9 @@ def lamcalc_vjp_work(st: LamStatic, packed, g_out):
     :func:`lamcalc_vjp_plain` that reads the output's cotangent, scaled as
     :func:`lamcalc_work` scales it; the input and the output's cotangent
     read once, the input's cotangent written once.  The replay and the
-    temperatures the reverse pass recomputes are the kernel's choice, not
-    work the function needs, and are not counted."""
+    values the reverse pass recomputes (the ratio, ``M``'s entries and the
+    solve's coefficients) are the kernel's choice, not work the function
+    needs, and are not counted."""
     nbytes = packed.element_size() * (2 * packed.numel() + S_OUT * packed.shape[1])
     fwd_other, fwd_divisions, _ = lamcalc_work(st, packed)
     other, divisions = _scaled_work(st, packed, lamcalc_vjp_plain, g_out, seeds=1)

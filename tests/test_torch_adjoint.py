@@ -380,7 +380,8 @@ def test_adjoint_work_is_one_forward_and_the_twins_arithmetic_on_cotangents(kern
     the twin replays (the year's, which writes the tape, for ``udeb_year``;
     the iterations' for ``lamcalc``), nor the forward values its reverse
     pass recomputes, which are the kernel's design and not work the
-    function needs.  (The
+    function needs (for ``lamcalc`` no cofactors: they come from the
+    replay's tape).  (The
     LAMCALC counts are scaled from the slowest member's iterations to the
     iterations each member runs.)"""
     from rscm_tpu_torch.ops.work import count_arithmetic
@@ -410,3 +411,8 @@ def test_adjoint_work_is_one_forward_and_the_twins_arithmetic_on_cotangents(kern
     for k in range(2):
         assert work[k] == pytest.approx(fwd[k] + on_cotangents[k], rel=1e-12)
         assert whole[k] - on_cotangents[k] > replays * fwd[k]
+    if kernel == "lamcalc":
+        # the reverse pass recomputes no cofactors: its own values (the
+        # ratio, M's entries and the solve's coefficients) cost under a
+        # quarter of a forward's additions and multiplications
+        assert whole[0] - on_cotangents[0] < 1.25 * fwd[0]
